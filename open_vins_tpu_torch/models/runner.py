@@ -1,0 +1,110 @@
+"""Closed-loop runner: initialize from groundtruth and step the filter over
+staged frames.
+
+Counterpart of `run_filter` in `open_vins_tpu/models/runner.py`
+(run_simulation.cpp:34-110): the reference scans the step with `lax.scan`;
+here a Python loop calls `manager.step_frame` once per frame and stacks the
+same outputs.  The frames are staged by the JAX simulator and handed over
+as arrays (see `open_vins_tpu_torch/convert.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from open_vins_tpu_torch import resolve_device
+from open_vins_tpu_torch.core.layout import FilterConfig
+from open_vins_tpu_torch.core.state import TensorRecord
+from open_vins_tpu_torch.models import feature_table as ft
+from open_vins_tpu_torch.models import manager
+from open_vins_tpu_torch.models import triangulation as tri
+from open_vins_tpu_torch.models.propagator import ImuWindow
+from open_vins_tpu_torch.ops import lie
+
+
+@dataclasses.dataclass
+class SimRun(TensorRecord):
+    frames: manager.FrameInput  # batched over frames (leading axis)
+    gt_q: torch.Tensor  # [Kf, 4]
+    gt_p: torch.Tensor  # [Kf, 3]
+    gt_v: torch.Tensor  # [Kf, 3]
+
+
+@dataclasses.dataclass
+class SimCalib(TensorRecord):
+    """What `run_filter` reads of the simulator: true initial biases and
+    the camera calibration."""
+
+    bias_g0: torch.Tensor  # [3]
+    bias_a0: torch.Tensor  # [3]
+    cam_R_ItoC: torch.Tensor  # [N, 3, 3]
+    cam_p_IinC: torch.Tensor  # [N, 3]
+    cam_intr: torch.Tensor  # [N, 8]
+
+
+def frame_at(frames: manager.FrameInput, k: int) -> manager.FrameInput:
+    """Frame k of a batch of frames."""
+    return manager.FrameInput(
+        win=ImuWindow(t=frames.win.t[k], w=frames.win.w[k],
+                      a=frames.win.a[k]),
+        t_new=frames.t_new[k], ids=frames.ids[k], uv=frames.uv[k],
+        uvn=frames.uvn[k], mask=frames.mask[k])
+
+
+def _to(record, device):
+    """A record of tensors (nested records too) moved to `device`."""
+    return type(record)(**{
+        k: _to(v, device) if isinstance(v, TensorRecord) else v.to(device)
+        for k, v in record.items()})
+
+
+def run_filter(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
+               calib: SimCalib, run: SimRun, max_tracks: int = 256,
+               device=None):
+    """Init from groundtruth at frame 0 and step the filter over all frames
+    on `device` (None = CUDA).
+
+    Returns (final_state, per-frame (q, p, v, cov[:6,:6], diag)) with each
+    output stacked over frames."""
+    dev = resolve_device(device)
+    run, calib = _to(run, dev), _to(calib, dev)
+    state = manager.initialize_from_gt(
+        cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
+        calib.bias_a0, 0.0,
+        calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
+        calib_ext_p=calib.cam_p_IinC,
+        calib_intr=calib.cam_intr,
+    )
+    table = ft.init_table(cfg, max_tracks, dev)
+    outs = []
+    for k in range(run.frames.t_new.shape[0]):
+        state, table, diag = manager.step_frame(state, table, cfg, tri_opts,
+                                                frame_at(run.frames, k))
+        outs.append((state.q, state.p, state.v, state.cov[:6, :6], diag))
+    qs, ps, vs, covs, diags = zip(*outs)
+    diag = manager.StepDiag(**{
+        k: torch.stack([getattr(d, k) for d in diags])
+        for k, _ in diags[0].items()})
+    return state, (torch.stack(qs), torch.stack(ps), torch.stack(vs),
+                   torch.stack(covs), diag)
+
+
+def pose_metrics(qs, ps, covs6, gt_q, gt_p):
+    """(position RMSE [m], mean pose NEES) of a run, as bench.py computes
+    them: outputs index k is frame k+1, NEES over the last three quarters of
+    the frames, error δp = gt − est and δθ = −log(R_gt R_estᵀ)."""
+    qs, ps = qs.detach().cpu(), ps.detach().cpu().numpy()
+    covs6 = covs6.detach().cpu().numpy()
+    gt_q, gt_p = gt_q.detach().cpu()[1:], gt_p.detach().cpu().numpy()[1:]
+    rmse = float(np.sqrt(((gt_p - ps) ** 2).sum(1).mean()))
+    R_est, R_gt = lie.quat_2_rot(qs), lie.quat_2_rot(gt_q)
+    nf = len(gt_p)
+    dth = -lie.log_so3(R_gt @ R_est.mT).numpy()
+    nees = []
+    for k in range(nf // 4, nf):
+        e = np.concatenate([dth[k], gt_p[k] - ps[k]])
+        nees.append(e @ np.linalg.solve(covs6[k] + 1e-12 * np.eye(6), e))
+    return rmse, float(np.mean(nees))

@@ -1,0 +1,105 @@
+"""Guards of the PyTorch port: it imports neither JAX nor the JAX package,
+its entry points default to the GPU and never fall back to the CPU on their
+own, `chip_smoke.py` fails without a GPU or without the repository around
+it, and `convert.py` carries state across unchanged."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import open_vins_tpu_torch
+from open_vins_tpu_torch import convert
+from open_vins_tpu_torch.core.layout import FilterConfig
+from open_vins_tpu_torch.core.state import init_state
+from open_vins_tpu_torch.models import feature_table as ft
+from open_vins_tpu_torch.models import runner
+from open_vins_tpu_torch.models import triangulation as tri
+from torch_port_helpers import FIXTURE
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "open_vins_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "open_vins_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax():
+    bad = [(str(p.relative_to(ROOT)), m) for p in _port_sources()
+           for m in _imported_modules(p)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"the port must not import JAX or its package: {bad}"
+    assert len(_port_sources()) >= 16
+
+
+def test_entry_points_default_to_cuda():
+    """device=None means CUDA; without a card that raises."""
+    cfg = FilterConfig(max_clones=3, max_slam=0)
+    if torch.cuda.is_available():
+        assert open_vins_tpu_torch.resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        open_vins_tpu_torch.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.load_staged_run(FIXTURE)
+    run, calib, _ = convert.load_staged_run(FIXTURE, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.run_filter(cfg, tri.TriangulationOptions(), calib, run)
+
+
+def _run_smoke(cwd, env):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_gpu_or_repo(where, tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    cwd = ROOT
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+        cwd, env = tmp_path, dict(os.environ)
+        env.pop("PYTHONPATH", None)
+    out = _run_smoke(cwd, env)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_convert_round_trip():
+    cfg = FilterConfig(max_clones=4, max_slam=2, num_cams=2)
+    rng = np.random.default_rng(0)
+    st = init_state(cfg, "cpu")
+    arrays = {k: (rng.normal(size=v.shape).astype(np.float32)
+                  if v.is_floating_point() else v.numpy())
+              for k, v in st.items()}
+    back = convert.state_to_numpy(convert.state_from_numpy(arrays, "cpu"))
+    assert back.keys() == arrays.keys()
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+        assert back[k].dtype == v.dtype, k
+    tb = convert.table_to_numpy(ft.init_table(cfg, 8, "cpu"))
+    tb2 = convert.table_to_numpy(convert.table_from_numpy(tb, "cpu"))
+    for k, v in tb.items():
+        np.testing.assert_array_equal(tb2[k], v, err_msg=k)
+    with np.load(FIXTURE) as z:
+        frames = {k: z[k][:3] for k in convert.FRAME_KEYS}
+    fr = convert.frames_to_numpy(convert.frames_from_numpy(frames, "cpu"))
+    for k, v in frames.items():
+        np.testing.assert_array_equal(fr[k], v, err_msg=k)
