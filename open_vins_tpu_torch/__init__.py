@@ -5,11 +5,16 @@ A second package beside the JAX reference `open_vins_tpu/`.  It imports
 Entry points take `device=None`, which means the CUDA device; the tests pass
 `device="cpu"` explicitly and nothing falls back to the CPU on its own.
 
-The current slice covers the closed-loop MSCKF-only filter (`max_slam=0`,
-rk4 or discrete integration): `models.runner.run_filter` calls
-`models.manager.step_frame` once per camera frame, and every EKF update's
-covariance downdate runs the hand-written Hopper kernel of
-`ops/csrc/symmetric_downdate.cu` (see `ops/kernels.py`).
+The port runs the closed-loop filter on staged frames:
+`models.runner.run_filter` calls `models.manager.step_frame` once per camera
+frame.  It covers OpenVINS's MSCKF-only mode (`max_slam=0`) and the bench's
+operating point: SLAM landmarks in the GLOBAL_3D representation with the
+joint batched delayed init, the joint "qr" vision update, and the rk4,
+discrete or analytical (ACI²) integrators.  Two hand-written Hopper kernels
+(see `ops/kernels.py`): every EKF update's covariance downdate runs
+`ops/csrc/symmetric_downdate.cu`, and the Householder TSQR compression
+(`models.update_helper.compress_system`) runs its row blocks through
+`ops/csrc/householder_qr_blocks.cu`.
 """
 
 import torch as _torch

@@ -68,11 +68,24 @@ def frames_to_numpy(frames: FrameInput) -> dict:
     return out
 
 
+def load_reference(path) -> dict:
+    """The JAX run stored in an `.npz` (a staged-run file or a `*_ref.npz`
+    beside one): its per-frame `ref_*` arrays, `ref_rmse`/`ref_nees` as
+    floats and `meta` (the configuration, decoded from JSON)."""
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files if k.startswith("ref_")}
+        ref["meta"] = json.loads(str(z["meta"]))
+    ref["ref_rmse"] = float(ref["ref_rmse"])
+    ref["ref_nees"] = float(ref["ref_nees"])
+    return ref
+
+
 def load_staged_run(path, device=None):
     """(SimRun, SimCalib, reference) from a staged-run `.npz` (see
-    tests/test_torch_fixture.py).  `reference` holds the JAX run's per-frame
-    `ref_q`/`ref_p`, `ref_n_msckf`, its `ref_rmse`/`ref_nees` and `meta`
-    (the simulator and filter configuration, decoded from JSON)."""
+    tests/test_torch_fixture.py); `reference` is `load_reference(path)`:
+    the JAX run's per-frame `ref_q`/`ref_p`, `ref_n_msckf`, its
+    `ref_rmse`/`ref_nees` and `meta` (the simulator and filter
+    configuration)."""
     dev = resolve_device(device)
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
@@ -82,8 +95,4 @@ def load_staged_run(path, device=None):
                  gt_v=_tensor(arrays["gt_v"], dev))
     calib = SimCalib(**{f.name: _tensor(arrays[f.name], dev)
                         for f in dataclasses.fields(SimCalib)})
-    reference = {k: arrays[k] for k in ("ref_q", "ref_p", "ref_n_msckf")}
-    reference["ref_rmse"] = float(arrays["ref_rmse"])
-    reference["ref_nees"] = float(arrays["ref_nees"])
-    reference["meta"] = json.loads(str(arrays["meta"]))
-    return run, calib, reference
+    return run, calib, load_reference(path)

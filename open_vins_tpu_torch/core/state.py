@@ -143,6 +143,13 @@ def next_slot(state: VioState, cfg: FilterConfig):
     return (state.head + 1) % cfg.max_clones
 
 
+def clone_age_order(state: VioState, cfg: FilterConfig):
+    """Slots ordered newest-first: [head, head-1, ...] mod C."""
+    C = cfg.max_clones
+    return (state.head - torch.arange(C, dtype=torch.int32,
+                                      device=state.head.device)) % C
+
+
 def _quat_boxplus(q, dth):
     """JPL left-multiplicative update: q_new = [0.5 dθ, 1] ⊗ q (normalized)."""
     dq = torch.cat([0.5 * dth, torch.ones_like(dth[..., :1])], dim=-1)

@@ -184,3 +184,9 @@ def free_rows(table: FeatureTable, rows_mask) -> FeatureTable:
         mbits=torch.where(keep[:, None], table.mbits, 0),
         seen=table.seen & keep,
     )
+
+
+def select_candidates(score, k: int):
+    """Indices of the k best scores, ties broken by the lowest index (as
+    jax.lax.top_k does; torch.topk promises no order among ties)."""
+    return torch.sort(score, descending=True, stable=True).indices[:k]

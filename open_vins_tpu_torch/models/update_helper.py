@@ -3,7 +3,11 @@
 
 Counterpart of `open_vins_tpu/models/update_helper.py` (UpdaterHelper
 parity, UpdaterHelper.cpp:192-487), batched over the F features of an update
-with a leading feature dimension instead of a vmap.
+with a leading feature dimension instead of a vmap.  The single-feature
+`feature_jacobian` is not needed: the SLAM updater calls
+`feature_jacobian_batch` with one row per landmark and per-landmark FEJ
+points.  `compress_system` (the Householder TSQR) runs its row blocks
+through the hand-written `householder_qr_blocks` kernel on CUDA.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 from open_vins_tpu_torch.core.layout import FilterConfig
 from open_vins_tpu_torch.core.state import TensorRecord, VioState
 from open_vins_tpu_torch.ops import cameras, lie, smallmat
+from open_vins_tpu_torch.ops.kernels import householder_qr_blocks
 
 
 @dataclasses.dataclass
@@ -187,6 +192,47 @@ def nullspace_project(H_x, H_f, res):
     res_proj [..., m-3]).  Invalid rows must already be zeroed."""
     _, B = householder_rotate(H_f, torch.cat([H_x, res[..., None]], dim=-1))
     return B[..., 3:, :-1], B[..., 3:, -1]
+
+
+def _round_up(x, m):
+    return ((x + m - 1) // m) * m
+
+
+_TSQR_MIN_RATIO = 4  # TSQR only for m >= 4·n, as in the reference
+
+
+def _tsqr_r(A):
+    """R factor of a tall [m, n] matrix by TSQR row-block reduction: g
+    independent [B, n] Householder QRs (`householder_qr_blocks`, the
+    hand-written kernel on CUDA) and one small QR of the stacked [g·n, n]
+    R factors.  Any R with RᵀR = AᵀA is an orthogonal transform of the same
+    system (the UpdaterHelper.cpp:456-487 argument); zero-padded rows are
+    exact no-ops.  One dense QR when m < _TSQR_MIN_RATIO·n.
+    B = 2n rounded up to 32 rows; n is not padded."""
+    m, n = A.shape
+    if m < _TSQR_MIN_RATIO * n:
+        return torch.linalg.qr(A, mode="r").R
+    B = _round_up(2 * n, 32)
+    g = max(1, -(-m // B))
+    A_p = A.new_zeros((g * B, n))
+    A_p[:m] = A
+    R_b = householder_qr_blocks(A_p.reshape(g, B, n))  # [g, n, n]
+    return torch.linalg.qr(R_b.reshape(g * n, n), mode="r").R[:n]
+
+
+def compress_system(H, res, out_rows):
+    """QR measurement compression (UpdaterHelper.cpp:456-487 parity): R of
+    the augmented [H | res]; its leading `out_rows` rows are the compressed
+    system (H_c [out_rows, D], res_c [out_rows]) under the same orthogonal
+    transform.  Tall systems go through the TSQR reduction (`_tsqr_r`)."""
+    m, D = H.shape
+    R = _tsqr_r(torch.cat([H, res[:, None]], dim=1))
+    k = min(out_rows, R.shape[0])
+    H_c = H.new_zeros((out_rows, D))
+    H_c[:k] = R[:k, :D]
+    res_c = H.new_zeros((out_rows,))
+    res_c[:k] = R[:k, D]
+    return H_c, res_c
 
 
 def take_cols(M, ranges):

@@ -32,6 +32,11 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
+    "householder_qr_blocks": (
+        "householder_qr_blocks_f32",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

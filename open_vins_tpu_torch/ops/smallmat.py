@@ -1,5 +1,6 @@
-"""Closed-form small-matrix algebra: 3×3 adjugate solve, symmetric 3×3
-eigenvalues, and the unrolled-Cholesky quadratic form of the χ² gates.
+"""Closed-form small-matrix algebra: 3×3 adjugate solve, upper-triangular
+3×3 inverse, symmetric 3×3 eigenvalues, and the unrolled-Cholesky quadratic
+form of the χ² gates.
 
 Counterpart of `open_vins_tpu/ops/smallmat.py`.  The same arithmetic in the
 same order, so that gates near their thresholds decide alike in both
@@ -55,6 +56,29 @@ def chi2_quadform(S, b, floor: float = 1e-20):
         yi = (b[..., i] - torch.sum(L[..., i, :] * y, dim=-1)) / L[..., i, i]
         y = y + yi[..., None] * (idx == i)
     return torch.sum(y * y, dim=-1)
+
+
+def inv_upper3(U, eps: float = 1e-12):
+    """Inverse of upper-triangular [..., 3, 3] U in closed form; diagonals
+    are clamped at ±eps (callers gate degenerate systems separately)."""
+    def _safe(d):
+        s = torch.where(d < 0, -1.0, 1.0)
+        return torch.where(torch.abs(d) < eps, s * eps, d)
+
+    u11 = _safe(U[..., 0, 0])
+    u22 = _safe(U[..., 1, 1])
+    u33 = _safe(U[..., 2, 2])
+    u12, u13, u23 = U[..., 0, 1], U[..., 0, 2], U[..., 1, 2]
+    v11, v22, v33 = 1.0 / u11, 1.0 / u22, 1.0 / u33
+    v12 = -u12 * v11 * v22
+    v23 = -u23 * v22 * v33
+    v13 = (u12 * u23 - u13 * u22) * v11 * v22 * v33
+    z = torch.zeros_like(v11)
+    return torch.stack([
+        torch.stack([v11, v12, v13], dim=-1),
+        torch.stack([z, v22, v23], dim=-1),
+        torch.stack([z, z, v33], dim=-1),
+    ], dim=-2)
 
 
 def eigvalsh3(A):

@@ -7,7 +7,14 @@ camera / 200 Hz IMU, rk4, 20 s, seed 0), plus the JAX run's per-frame pose and
 its RMSE / NEES.  The machine with the card has no JAX, so the port reads the
 frames from this file.
 
-Regenerate with ``python tests/test_torch_fixture.py --write``.  The test below
+`open_vins_tpu_torch/data/oppoint_sim20_seed0_ref.npz` holds the JAX run of
+the bench's operating point (`bench.py:94-96`: 11 clones, 50 SLAM landmarks,
+<= 40 MSCKF features, ACI² integration, the joint "qr" vision update) over
+the same frames: per-frame pose, MSCKF and SLAM counts, RMSE / NEES and the
+configuration.  It holds no frames of its own.
+
+Regenerate both with ``python tests/test_torch_fixture.py --write`` (or only
+the operating-point reference with ``--write-oppoint``).  The test below
 re-stages with JAX and requires the committed arrays to match; it is marked
 slow (about half a minute of JAX staging): run it with ``-m slow`` after any
 change to the fixture or to the simulator.
@@ -32,6 +39,13 @@ CFG = dict(max_clones=11, max_slam=0, num_cams=1, max_msckf_in_update=40,
            integration="rk4")
 SEED = 0
 MAX_TRACKS = 384
+
+OPPOINT_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                           "oppoint_sim20_seed0_ref.npz")
+# bench.py:94-96, with the default joint "qr" vision update
+OPPOINT_CFG = dict(max_clones=11, max_slam=50, num_cams=1,
+                   max_msckf_in_update=40, integration="analytical",
+                   newton_iters=14)
 
 STAGED_KEYS = ("win_t", "win_w", "win_a", "t_new", "ids", "uv", "uvn", "mask",
                "gt_q", "gt_p", "gt_v", "bias_g0", "bias_a0", "cam_R_ItoC",
@@ -108,6 +122,62 @@ def write_fixture(path=FIXTURE):
                       "finite": bool(np.isfinite(np.asarray(state.cov)).all())}))
 
 
+def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
+    """Run JAX's operating point over the committed frames of `frames_path`
+    (the very arrays the port replays) and save the small reference file."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.core.layout import FilterConfig
+    from open_vins_tpu.models import manager, runner
+    from open_vins_tpu.models import triangulation as tri
+    from open_vins_tpu.models.propagator import ImuWindow
+    from open_vins_tpu.ops import lie
+
+    with np.load(frames_path) as z:
+        a = {k: z[k] for k in z.files}
+    frames = manager.FrameInput(
+        win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    run = runner.SimRun(frames=frames, gt_q=a["gt_q"], gt_p=a["gt_p"],
+                        gt_v=a["gt_v"])
+    # run_filter reads only these fields of the simulator
+    sim = types.SimpleNamespace(
+        bias_g_traj=a["bias_g0"][None], bias_a_traj=a["bias_a0"][None],
+        cam_R_ItoC=a["cam_R_ItoC"], cam_p_IinC=a["cam_p_IinC"],
+        cam_intr=a["cam_intr"])
+    cfg = FilterConfig(**OPPOINT_CFG)
+    tri_opts = tri.TriangulationOptions()
+    state, outs = jax.jit(lambda r: runner.run_filter(
+        cfg, tri_opts, sim, None, r, max_tracks=MAX_TRACKS))(run)
+    qs, ps, covs6 = (np.asarray(outs[0]), np.asarray(outs[1]),
+                     np.asarray(outs[3]))
+    rmse, nees = pose_metrics(
+        qs, ps, covs6, a["gt_q"], a["gt_p"],
+        lambda q: lie.quat_2_rot(jnp.asarray(q)),
+        lambda R: lie.log_so3(jnp.asarray(R)))
+    diag = outs[4]
+    meta = {"frames": os.path.basename(frames_path), "cfg": OPPOINT_CFG,
+            "seed": SEED, "max_tracks": MAX_TRACKS,
+            "tri_opts": "TriangulationOptions()"}
+    np.savez_compressed(
+        path, ref_q=qs, ref_p=ps, ref_n_msckf=np.asarray(diag.n_msckf),
+        ref_n_slam=np.asarray(diag.n_slam),
+        ref_n_slam_used=np.asarray(diag.n_slam_used),
+        ref_rmse=np.float64(rmse), ref_nees=np.float64(nees),
+        meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({
+        "path": path, "bytes": os.path.getsize(path),
+        "frames": int(qs.shape[0]), "rmse": rmse, "nees": nees,
+        "n_msckf_mean": float(np.mean(diag.n_msckf)),
+        "n_slam_mean": float(np.mean(diag.n_slam)),
+        "n_slam_used_mean": float(np.mean(diag.n_slam_used)),
+        "finite": bool(np.isfinite(np.asarray(state.cov)).all())}))
+
+
 @pytest.mark.slow
 def test_fixture_matches_fresh_staging():
     """The committed frames equal a fresh JAX staging (ids and masks exactly;
@@ -128,15 +198,26 @@ def test_fixture_matches_fresh_staging():
                                            err_msg=k)
         assert z["ref_q"].shape == (arrays["t_new"].shape[0], 4)
         assert np.isfinite(z["ref_rmse"]) and np.isfinite(z["ref_nees"])
+    with np.load(OPPOINT_REF) as z:
+        meta = json.loads(str(z["meta"]))
+        assert meta["cfg"] == OPPOINT_CFG
+        assert meta["frames"] == os.path.basename(FIXTURE)
+        assert meta["seed"] == SEED and meta["max_tracks"] == MAX_TRACKS
+        n = arrays["t_new"].shape[0]
+        assert z["ref_p"].shape == (n, 3) and z["ref_n_slam"].shape == (n,)
+        assert z["ref_n_slam"].mean() > 0
+        assert np.isfinite(z["ref_rmse"]) and np.isfinite(z["ref_nees"])
 
 
 if __name__ == "__main__":
-    if "--write" in sys.argv:
+    if "--write" in sys.argv or "--write-oppoint" in sys.argv:
         import jax
 
         # stage on the CPU, as the test re-stages it
         jax.config.update("jax_platforms", "cpu")
         sys.path.insert(0, ROOT)
-        write_fixture()
+        if "--write" in sys.argv:
+            write_fixture()
+        write_oppoint_reference()
     else:
         print(__doc__)

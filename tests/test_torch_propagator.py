@@ -1,6 +1,7 @@
 """Parity of the port's IMU propagation with the JAX package over one camera
-window of the staged reference-width run (11 samples at 200 Hz): mean and
-covariance to 1e-5 (covariance relative to ‖P‖)."""
+window of the staged reference-width run (11 samples at 200 Hz), for the
+rk4, discrete and analytical (ACI²) integrators: mean and covariance to 1e-5
+(covariance relative to ‖P‖)."""
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,11 @@ def _window_and_state(cfg, frame=5, pad=0, seed=0):
     (dict(integration="discrete"), 0),
     (dict(integration="rk4", calib_imu_intrinsics=True,
           calib_imu_g_sensitivity=True), 0),
+    (dict(integration="analytical"), 0),
+    (dict(integration="analytical", calib_imu_intrinsics=True,
+          calib_imu_g_sensitivity=True), 0),
+    (dict(integration="analytical", calib_imu_intrinsics=True,
+          calib_imu_g_sensitivity=True, imu_model="rpng"), 0),
 ])
 def test_propagate_matches_jax(kw, pad):
     base = dict(max_clones=11, max_slam=0, num_cams=1)
@@ -63,9 +69,15 @@ def test_propagate_matches_jax(kw, pad):
 
 
 def test_analytical_integration_is_a_later_slice():
-    cfg = TCfg(max_clones=11, max_slam=0, integration="analytical")
-    st, (wt, ww, wa) = _window_and_state(JCfg(max_clones=11, max_slam=0))
-    with pytest.raises(NotImplementedError, match="second slice"):
-        tprop.propagate(jax_state_to_port(st), cfg,
-                        tprop.ImuWindow(t=t(wt), w=t(ww), a=t(wa)),
-                        torch.tensor(float(wt[-1])))
+    """ACI², once left for a later slice of the port, now runs: on a window
+    padded by three repeated samples (dt = 0 intervals) it matches JAX."""
+    kw = dict(max_clones=11, max_slam=0, integration="analytical")
+    jc, tc = JCfg(**kw), TCfg(**kw)
+    st, (wt, ww, wa) = _window_and_state(jc, pad=3)
+    want = jax.jit(jprop.propagate, static_argnums=1)(st, jc, jprop.ImuWindow(
+        t=jnp.asarray(wt), w=jnp.asarray(ww), a=jnp.asarray(wa)),
+        float(wt[-1]))
+    got = tprop.propagate(jax_state_to_port(st), tc,
+                          tprop.ImuWindow(t=t(wt), w=t(ww), a=t(wa)),
+                          torch.tensor(float(wt[-1])))
+    assert_state_close(got, want, atol=1e-5, cov_rel=1e-5)

@@ -13,6 +13,7 @@ import torch
 from open_vins_tpu_torch import convert
 
 CPU = "cpu"
+STACK_ZERO_IMU = 15  # the IMU block: zero columns of every joint stack
 FIXTURE = (Path(__file__).resolve().parents[1] / "open_vins_tpu_torch"
            / "data" / "msckf_sim20_seed0.npz")
 
@@ -101,9 +102,11 @@ class Problem(NamedTuple):
     tri_port: object
 
 
-def graft_problem() -> Problem:
+def graft_problem(max_slam=0, integration="rk4", duration=1.0) -> Problem:
     """`__graft_entry__._build_problem()`: 5 clones, 12 points, a 10 Hz
-    camera for 1 s (9 frames), max_slam=0, rk4, two Gauss-Newton runs."""
+    camera for `duration` s (9 frames at 1 s), <= 8 MSCKF features, two
+    Gauss-Newton runs; max_slam=0 and rk4 unless told.  Staging it compiles
+    the JAX simulator (about 30 s on a CPU)."""
     import __graft_entry__
     from open_vins_tpu.core.layout import FilterConfig as JCfg
     from open_vins_tpu.models import runner as jrun
@@ -112,14 +115,15 @@ def graft_problem() -> Problem:
     from open_vins_tpu_torch.core.layout import FilterConfig as TCfg
     from open_vins_tpu_torch.models import triangulation as ttri
 
-    _, (state, table, frame0) = __graft_entry__._build_problem()
+    _, (state, table, frame0) = __graft_entry__._build_problem(
+        max_slam=max_slam, integration=integration, duration=duration)
     params = simulator.SimParams(imu_rate=100.0, cam_rate=10.0, num_cams=1,
-                                 num_pts=12, map_size=128, duration=1.0)
+                                 num_pts=12, map_size=128, duration=duration)
     run = jrun.stage_run(simulator.build(params, seed=0), params)
     np.testing.assert_array_equal(np.asarray(run.frames.uv[0]),
                                   np.asarray(frame0.uv))
-    kw = dict(max_clones=5, max_slam=0, num_cams=1, max_msckf_in_update=8,
-              integration="rk4")
+    kw = dict(max_clones=5, max_slam=max_slam, num_cams=1,
+              max_msckf_in_update=8, integration=integration)
     return Problem(state, table, run.frames, JCfg(**kw), TCfg(**kw),
                    jtri.TriangulationOptions(max_runs=2),
                    ttri.TriangulationOptions(max_runs=2))
@@ -156,3 +160,72 @@ def fixture_problem() -> Problem:
     return Problem(state, jman.ft.init_table(jc, meta["max_tracks"]), frames,
                    jc, TCfg(**meta["cfg"]), jtri.TriangulationOptions(),
                    ttri.TriangulationOptions())
+
+
+def slam_problem() -> Problem:
+    """A small SLAM configuration on the staged frames of FIXTURE (no
+    simulator to compile): 5 clones, 4 landmark slots, <= 8 MSCKF features,
+    ACI², the joint "qr" update; landmarks enter from frame 5 on."""
+    import jax.numpy as jnp
+
+    from open_vins_tpu.core.layout import FilterConfig as JCfg
+    from open_vins_tpu.models import manager as jman
+    from open_vins_tpu_torch.core.layout import FilterConfig as TCfg
+
+    pb = fixture_problem()
+    kw = dict(max_clones=5, max_slam=4, num_cams=1, max_msckf_in_update=8,
+              integration="analytical")
+    jc = JCfg(**kw)
+    st = pb.state
+    state = jman.initialize_from_gt(jc, st.q, st.p, st.v, st.bg, st.ba, 0.0,
+                                    st.calib_ext_q, st.calib_ext_p,
+                                    st.calib_intr)
+    table = jman.ft.init_table(jc, pb.table.ids.shape[0])
+    return pb._replace(state=state, table=table, cfg_jax=jc,
+                       cfg_port=TCfg(**kw))
+
+
+def downdate_inputs(D, m, same, seed=0):
+    """(P, K, PHt) float32 numpy inputs of symmetric_downdate: P SPD,
+    K = PHt when `same`."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(D, D)) * 0.1
+    P = (A @ A.T + np.eye(D)).astype(np.float32)
+    K = (rng.normal(size=(D, m)) * 0.05).astype(np.float32)
+    PHt = K if same else (rng.normal(size=(D, m)) * 0.05).astype(np.float32)
+    return P, K, PHt
+
+
+def oracle_blocks(B, n, g=3, seed=2):
+    """tests/test_pallas_kernels.py's QR input: Gaussian [g, B, n] blocks
+    with the last 7 rows and the last 5 columns zeroed."""
+    A = np.random.default_rng(seed).normal(size=(g, B, n)).astype(np.float32)
+    A[:, -7:, :] = 0.0
+    A[:, :, -5:] = 0.0
+    return A
+
+
+def stack_blocks(m, n, seed=0):
+    """A Gaussian [m, n] stack with the joint stack's zero columns (the IMU
+    block and the IMU-intrinsic tail), zero-padded and cut into the row
+    blocks of update_helper._tsqr_r (B = 2n rounded up to 32)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n)).astype(np.float32)
+    A[:, :STACK_ZERO_IMU] = 0.0
+    A[:, n - 25:n - 1] = 0.0
+    B = -(-2 * n // 32) * 32
+    g = -(-m // B)
+    A_p = np.zeros((g * B, n), np.float32)
+    A_p[:m] = A
+    return A_p.reshape(g, B, n)
+
+
+def check_r_factors(R, A, atol=2e-3, rtol=2e-3):
+    """RᵀR = AᵀA per block (in float64) and an exactly-zero strict lower
+    triangle."""
+    R = R.astype(np.float64)
+    for i in range(A.shape[0]):
+        Ai = A[i].astype(np.float64)
+        np.testing.assert_allclose(R[i].T @ R[i], Ai.T @ Ai, atol=atol,
+                                   rtol=rtol)
+        assert (np.tril(R[i], -1) == 0.0).all()
