@@ -9,12 +9,16 @@ so the exit code is not 0):
    `nvidia-smi --query-gpu=name,power.limit` line;
 2. build: every CUDA kernel of the port from the sources in the checkout,
    one nvcc per source, all started together;
-3. each kernel against its plain PyTorch version on the card, with
-   CUDA-event timings of the kernel, the plain version and the nearest
-   single PyTorch call, and the least time the card could take:
-   `symmetric_downdate` at the reference's oracle shapes and the main paths'
-   (120, 81) and (270, 231); `householder_qr_blocks` at the oracle shapes
-   and the row blocks of the MSCKF-only stack (760 × 121) and of the
+3. each kernel against its plain PyTorch version on the card, at the
+   shapes it is timed at and at edge shapes (checked only), with the least
+   time the card could take and two times of the kernel and of the nearest
+   single PyTorch call: `device_ms`, a CUDA graph of 50 calls replayed
+   between one event pair (kernel and library call in turns), and
+   `call_ms`, one event pair around each eager call, which is what the
+   eager main path pays (host dispatch included).  `symmetric_downdate` at
+   the reference's oracle shapes, the main paths' (120, 81) and (270, 231)
+   and the large map's (1434, 231); `householder_qr_blocks` at the oracle
+   shapes and the row blocks of the MSCKF-only stack (760 × 121) and of the
    operating point's joint stack (1174 × 271);
 4. the MSCKF-only closed loop (11 clones, 200 points, <= 40 MSCKF features
    per update, 20 Hz camera / 200 Hz IMU, rk4) over the 399 staged frames
@@ -58,12 +62,17 @@ F32_FLOP_PER_S = 67e12
 
 DOWNDATE_SHAPES = [(96, 64), (171, 171), (256, 40), (130, 200), (120, 81),
                    (270, 231), (1434, 231)]
+DOWNDATE_EDGE_SHAPES = [(1, 5), (1, 0), (33, 20), (33, 0)]  # checked only
 OPPOINT_SHAPE = (270, 231)  # D and support width at the operating point
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
 # blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32)
 QR_SHAPES = [("oracle", 3, 256, 128), ("oracle", 3, 512, 128),
              ("oracle", 3, 384, 256), ("msckf_stack", 760, 256, 121),
              ("oppoint_stack", 1174, 544, 271)]
+# checked only: n < 32 (one ragged panel), B = n, g = 1 at the stack's n,
+# a block taller than the register panel's 640 rows
+QR_EDGE_SHAPES = [("edge", 2, 40, 15), ("edge", 1, 71, 71),
+                  ("edge", 1, 544, 271), ("edge", 1, 704, 96)]
 QR_ELEMENT_TOL = 1e-5  # × max|R|: the same reflectors, sums in another order
 RMSE_GATE_M = 0.05
 REF_RMSE_SPREAD_M = 0.01
@@ -75,8 +84,9 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_time_ms(fn, n_runs=200, n_warm=20):
-    """Median of per-call CUDA-event times of `fn` (ms)."""
+def call_ms(fn, n_runs=200, n_warm=20):
+    """Median of per-call CUDA-event times of `fn` (ms): one event pair
+    around each eager call, so a short kernel reads the host's dispatch."""
     import torch
 
     for _ in range(n_warm):
@@ -92,6 +102,58 @@ def cuda_time_ms(fn, n_runs=200, n_warm=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fns, n_calls=50, n_rounds=6):
+    """Device time per call (ms) of each function of `fns` (name -> fn): the
+    function's n_calls calls are captured in one CUDA graph, and the graphs
+    are replayed in turns (forward, then backward order) between one event
+    pair each; median over n_rounds of replay time / n_calls.  Inputs stay
+    in the 50 MB L2 between calls, as they do for the eager caller."""
+    import torch
+
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the capture
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n_calls):
+                fn()
+        graphs[name] = graph
+    names = list(graphs)
+    for name in names:
+        graphs[name].replay()
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for r in range(n_rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graphs[name].replay()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b) / n_calls)
+    del graphs
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _times(row, kernel, library, plain, n_call=200, n_plain=200):
+    """Device and per-call times of a kernel and its library call, the
+    plain version's per-call time and the bound's share of the kernel's
+    device time, into `row` (which holds bound_ms)."""
+    dev = device_ms({"kernel": kernel, "library": library})
+    row["device_ms"] = dev["kernel"]
+    row["call_ms"] = call_ms(kernel, n_runs=n_call, n_warm=3)
+    row["library_device_ms"] = dev["library"]
+    row["library_call_ms"] = call_ms(library, n_runs=n_call, n_warm=3)
+    row["plain_ms"] = call_ms(plain, n_runs=n_plain, n_warm=1)
+    row["bound_share"] = row["bound_ms"] / row["device_ms"]
 
 
 def phase_environment():
@@ -152,7 +214,7 @@ def phase_downdate():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for D, m in DOWNDATE_SHAPES:
+    for D, m in DOWNDATE_SHAPES + DOWNDATE_EDGE_SHAPES:
         for same in (True, False):
             A = torch.randn(D, D, device="cuda", generator=gen)
             P = (A + A.T) / 2
@@ -172,13 +234,12 @@ def phase_downdate():
                 emit(row)
                 raise AssertionError(f"symmetric_downdate disagrees at "
                                      f"D={D}, m={m}, K_is_PHt={same}")
-            row["ms"] = cuda_time_ms(
-                lambda: kernels.symmetric_downdate(P, K, PHt))
-            row["plain_ms"] = cuda_time_ms(
-                lambda: kernels.symmetric_downdate_ref(P, K, PHt))
-            row["library_ms"] = cuda_time_ms(
-                lambda: torch.addmm(P, K, PHt.mT, alpha=-1))
-            row["bound_ms"], row["bound_by"] = downdate_bound_ms(D, m, same)
+            if (D, m) in DOWNDATE_SHAPES:
+                row["bound_ms"], row["bound_by"] = downdate_bound_ms(D, m,
+                                                                     same)
+                _times(row, lambda: kernels.symmetric_downdate(P, K, PHt),
+                       lambda: torch.addmm(P, K, PHt.mT, alpha=-1),
+                       lambda: kernels.symmetric_downdate_ref(P, K, PHt))
             emit(row)
             rows[(D, m, same)] = row
     emit({"phase": "kernel_downdate", "seconds": time.perf_counter() - t0})
@@ -192,7 +253,7 @@ def _qr_input(label, g_or_m, B, n, gen):
     rows and cut into blocks, as update_helper._tsqr_r does."""
     import torch
 
-    if label == "oracle":
+    if label in ("oracle", "edge"):
         A = torch.randn(g_or_m, B, n, device="cuda", generator=gen)
         A[:, -7:, :] = 0.0
         A[:, :, -5:] = 0.0
@@ -218,7 +279,7 @@ def phase_qr():
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for label, g_or_m, B, n in QR_SHAPES:
+    for label, g_or_m, B, n in QR_SHAPES + QR_EDGE_SHAPES:
         A = _qr_input(label, g_or_m, B, n, gen)
         g = A.shape[0]
         R = kernels.householder_qr_blocks(A)
@@ -240,15 +301,14 @@ def phase_qr():
             emit(row)
             raise AssertionError(f"householder_qr_blocks disagrees at "
                                  f"{label} [g, B, n] = {[g, B, n]}")
-        row["ms"] = cuda_time_ms(lambda: kernels.householder_qr_blocks(A),
-                                 n_runs=20, n_warm=3)
-        row["plain_ms"] = cuda_time_ms(
-            lambda: kernels.householder_qr_blocks_ref(A), n_runs=5, n_warm=1)
-        row["library_ms"] = cuda_time_ms(
-            lambda: torch.linalg.qr(A, mode="r"), n_runs=20, n_warm=3)
-        row["bound_ms"], row["bound_by"] = qr_bound_ms(g, B, n)
+        if label != "edge":
+            row["bound_ms"], row["bound_by"] = qr_bound_ms(g, B, n)
+            _times(row, lambda: kernels.householder_qr_blocks(A),
+                   lambda: torch.linalg.qr(A, mode="r"),
+                   lambda: kernels.householder_qr_blocks_ref(A),
+                   n_call=20, n_plain=5)
+            rows[(label, B, n)] = row
         emit(row)
-        rows[label] = row
     emit({"phase": "kernel_qr", "seconds": time.perf_counter() - t0})
     return rows
 
@@ -456,6 +516,17 @@ def phase_oppoint_path(run, calib):
     return row
 
 
+def _kernel_numbers(row):
+    """A kernel's numbers for the kernels line: `ms` and `library_ms` are
+    device times (`device_ms`); the per-call times stand beside them."""
+    return {"max_abs_err": row["max_abs_err"], "ms": row["device_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_device_ms"],
+            "device_ms": row["device_ms"], "call_ms": row["call_ms"],
+            "library_call_ms": row["library_call_ms"],
+            "bound_share": row["bound_share"]}
+
+
 def main():
     import torch
 
@@ -475,24 +546,20 @@ def main():
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
-    qr = qr_rows["oppoint_stack"]
+    qr = qr_rows[("oppoint_stack", 544, 271)]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "symmetric_downdate", "route": "cuda",
         "source": "open_vins_tpu_torch/ops/csrc/symmetric_downdate.cu",
         "replaces": "open_vins_tpu/ops/pallas_kernels.py:32",
         "launches": op_row["launches"]["symmetric_downdate"],
-        "max_abs_err": dd["max_abs_err"], "ms": dd["ms"],
-        "plain_ms": dd["plain_ms"], "bound_ms": dd["bound_ms"],
-        "bound_by": dd["bound_by"], "library_ms": dd["library_ms"],
+        **_kernel_numbers(dd),
     }, {
         "name": "householder_qr_blocks", "route": "cuda",
         "source": "open_vins_tpu_torch/ops/csrc/householder_qr_blocks.cu",
         "replaces": "open_vins_tpu/ops/pallas_kernels.py:115",
         "launches": tsqr_launches,
-        "max_abs_err": qr["max_abs_err"], "ms": qr["ms"],
-        "plain_ms": qr["plain_ms"], "bound_ms": qr["bound_ms"],
-        "bound_by": qr["bound_by"], "library_ms": qr["library_ms"],
+        **_kernel_numbers(qr),
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

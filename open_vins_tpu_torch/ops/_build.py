@@ -30,12 +30,12 @@ _SIGNATURES = {
     "symmetric_downdate": (
         "symmetric_downdate_f32",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
     "householder_qr_blocks": (
         "householder_qr_blocks_f32",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
 }
 

@@ -41,12 +41,21 @@ def _check_downdate_args(P, K, PHt):
                          f"device, got {P.device}, {K.device}, {PHt.device}")
 
 
+def same_operand(K, PHt):
+    """True when K and PHt are one tensor: the same storage offset, shape and
+    strides.  An equal copy or another view of K's storage is not."""
+    return (K.data_ptr() == PHt.data_ptr() and K.shape == PHt.shape
+            and K.stride() == PHt.stride())
+
+
 def symmetric_downdate(P, K, PHt):
     """sym(P − K·PHtᵀ) = ½(P+Pᵀ) − ½(K·PHtᵀ + PHt·Kᵀ) — the covariance store
     of every EKF update (P [D,D], K and PHt [D,m], float32, contiguous).
 
     On CUDA it runs `csrc/symmetric_downdate.cu`, which replaces the TPU
-    kernel `_downdate_kernel` of open_vins_tpu/ops/pallas_kernels.py.
+    kernel `_downdate_kernel` of open_vins_tpu/ops/pallas_kernels.py; when
+    K and PHt are one tensor (`same_operand`) the kernel forms the single
+    product K·Kᵀ.
     """
     _check_downdate_args(P, K, PHt)
     if P.device.type == "cpu":
@@ -60,7 +69,8 @@ def symmetric_downdate(P, K, PHt):
         stream = torch.cuda.current_stream(P.device).cuda_stream
         err = lib.symmetric_downdate_f32(P.data_ptr(), K.data_ptr(),
                                          PHt.data_ptr(), out.data_ptr(),
-                                         D, m, stream)
+                                         D, m, int(same_operand(K, PHt)),
+                                         stream)
     if err != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: "
                            f"cudaError {err}")
@@ -69,6 +79,9 @@ def symmetric_downdate(P, K, PHt):
 
 
 symmetric_downdate.launches = 0
+
+
+_QR_PANEL = 32  # NBMAX of csrc/householder_qr_blocks.cu
 
 
 def householder_qr_blocks_ref(A_blocks):
@@ -111,8 +124,11 @@ def householder_qr_blocks(A_blocks):
     """R factors [g, n, n] of the row blocks A_blocks [g, B, n] (float32,
     contiguous, B >= n): upper triangular, strict lower triangle exactly 0.
 
-    On CUDA it runs `csrc/householder_qr_blocks.cu`, which replaces the TPU
-    kernel `_house_qr_block_kernel` of open_vins_tpu/ops/pallas_kernels.py.
+    On CUDA it runs `csrc/householder_qr_blocks.cu` (blocked Householder in
+    compact WY form: a panel kernel and a trailing-update kernel per panel of
+    32 columns, all on the current stream, counted as one launch), which
+    replaces the TPU kernel `_house_qr_block_kernel` of
+    open_vins_tpu/ops/pallas_kernels.py.
     """
     _check_qr_args(A_blocks)
     if A_blocks.device.type == "cpu":
@@ -123,12 +139,15 @@ def householder_qr_blocks(A_blocks):
     g, B, n = A_blocks.shape
     out = torch.empty((g, n, n), dtype=A_blocks.dtype, device=A_blocks.device)
     work = torch.empty_like(A_blocks)  # each block's working copy
+    # a panel's reflectors V [B, 32] and triangular factor T [32, 32]
+    vt = torch.empty((g, B * _QR_PANEL + _QR_PANEL ** 2),
+                     dtype=A_blocks.dtype, device=A_blocks.device)
     lib = _build.load("householder_qr_blocks")
     with torch.cuda.device(A_blocks.device):
         stream = torch.cuda.current_stream(A_blocks.device).cuda_stream
         err = lib.householder_qr_blocks_f32(A_blocks.data_ptr(),
-                                            work.data_ptr(), out.data_ptr(),
-                                            g, B, n, stream)
+                                            work.data_ptr(), vt.data_ptr(),
+                                            out.data_ptr(), g, B, n, stream)
     if err != 0:
         raise RuntimeError("householder_qr_blocks kernel launch failed: "
                            f"cudaError {err}")

@@ -40,6 +40,17 @@ def test_cpu_call_counts_no_launch():
     assert kernels.symmetric_downdate.launches == before
 
 
+def test_same_operand_detection():
+    """The wrapper asks the kernel for the single product K·Kᵀ only when K
+    and PHt are one tensor: not for an equal copy nor a transposed view."""
+    K = torch.from_numpy(downdate_inputs(24, 24, True)[1])
+    assert kernels.same_operand(K, K)
+    assert kernels.same_operand(K, K.view(24, 24))
+    assert not kernels.same_operand(K, K.clone())
+    assert not kernels.same_operand(K, K.T)
+    assert not kernels.same_operand(K, K[:, :12])
+
+
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "shape"])
 def test_wrapper_rejects_bad_arguments(bad):
     P, K, PHt = (torch.from_numpy(a) for a in downdate_inputs(32, 8, False))

@@ -12,6 +12,13 @@
   `compress_system_ranges` (tests/test_compress.py's tolerances: p 2e-4,
   cov 2e-3).
 
+* a plain-torch rendition of the CUDA kernel's blocked algorithm (panels of
+  32 columns, reflectors kept below the panel's diagonal, the compact WY
+  factor T by the larft recurrence, trailing updates C -= V Tᵀ Vᵀ C)
+  against `householder_qr_blocks_ref` and the TPU kernel, element by
+  element at 1e-5·max|R|, at shapes that cover a ragged last panel, n < nb,
+  B = n, zero leading columns and zero padding rows.
+
 The CUDA kernel against its plain version is in tests/test_torch_cuda.py.
 """
 
@@ -157,3 +164,80 @@ def test_tsqr_update_matches_ranges_update():
                           ranges=ranges)
     np.testing.assert_allclose(np_of(s_q.p), np_of(s_r.p), atol=2e-4)
     np.testing.assert_allclose(np_of(s_q.cov), np_of(s_r.cov), atol=2e-3)
+
+
+QR_PANEL = 32  # nb of csrc/householder_qr_blocks.cu
+
+
+def blocked_wy_qr(A_blocks, nb=QR_PANEL):
+    """R of csrc/householder_qr_blocks.cu's algorithm, step for step in
+    plain torch: per panel of nb columns at j0, the panel is factored column
+    by column with the TPU kernel's reflectors (only the diagonal entry of a
+    reflector's own column is updated, so V stays below the diagonal), T is
+    built by T[0:j, j] = −τ_j T[0:j, 0:j] (V[:, 0:j]ᵀ v_j), and the trailing
+    columns take C −= V (Tᵀ (Vᵀ C))."""
+    g, B, n = A_blocks.shape
+    A = A_blocks.clone()
+    for b in range(g):
+        a = A[b]
+        for j0 in range(0, n, nb):
+            w = min(nb, n - j0)
+            pn = a[j0:, j0:j0 + w]  # a view: updates land in `a`
+            V = torch.zeros(B - j0, w)
+            tau = torch.zeros(w)
+            Y = torch.zeros(w, w)
+            for j in range(w):
+                x = pn[j + 1:, j]
+                t = torch.sum(x * x)
+                alpha = pn[j, j].clone()
+                normx = torch.sqrt(alpha * alpha + t)
+                beta = -normx if alpha >= 0 else normx
+                vj = alpha - beta
+                vn2 = vj * vj + t
+                if not vn2 > 1e-30:
+                    continue  # identity reflector: zero V column, zero τ
+                tau[j] = 2.0 / vn2
+                v = torch.cat([vj[None], x])  # rows j.. of the panel
+                V[j:, j] = v
+                s = v @ pn[j:, :]  # y for columns < j, vᵀA for the rest
+                Y[:j, j] = s[:j]
+                wc = tau[j] * s
+                pn[j, j] = alpha - vj * wc[j]
+                pn[j:, j + 1:] -= torch.outer(v, wc[j + 1:])
+            T = torch.diag(tau)
+            for j in range(1, w):
+                T[:j, j] = -tau[j] * (T[:j, :j] @ Y[:j, j])
+            if j0 + w < n:
+                C = a[j0:, j0 + w:]
+                C -= V @ (T.T @ (V.T @ C))
+    return torch.triu(A[:, :n, :])
+
+
+# (B, n, zeroed leading columns, zeroed trailing rows, g)
+BLOCKED_CASES = [
+    (96, 47, 0, 0, 2),   # ragged last panel (47 = 32 + 15)
+    (40, 15, 0, 0, 2),   # n < nb
+    (71, 71, 0, 0, 1),   # B = n (three panels, the last ragged), g = 1
+    (128, 64, 15, 9, 3),  # STACK_ZERO_IMU zero columns and zero padding rows
+]
+
+
+@pytest.mark.parametrize("B,n,zero_cols,zero_rows,g", BLOCKED_CASES)
+def test_blocked_wy_matches_plain_version_and_tpu_kernel(B, n, zero_cols,
+                                                         zero_rows, g):
+    """The CUDA kernel's blocked arithmetic against the unblocked oracle and
+    the TPU kernel, element by element at 1e-5·max|R|; zero columns stay
+    exactly zero."""
+    A = np.random.default_rng(B + n).normal(size=(g, B, n)).astype(np.float32)
+    A[:, :, :zero_cols] = 0.0
+    if zero_rows:
+        A[:, -zero_rows:, :] = 0.0
+    got = np_of(blocked_wy_qr(torch.from_numpy(A)))
+    ref = np_of(kernels.householder_qr_blocks_ref(torch.from_numpy(A)))
+    tpu = np.asarray(pk.householder_qr_blocks_pallas(jnp.asarray(A),
+                                                     interpret=True))
+    for want in (ref, tpu):
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(),
+                                   rtol=0)
+    assert (got[:, :, :zero_cols] == 0.0).all()
+    check_r_factors(got, A)
