@@ -33,13 +33,33 @@ so the exit code is not 0):
    same EKF update;
 6. the operating point's closed loop (bench.py:94-96: 11 clones, 50 SLAM
    landmarks, <= 40 MSCKF features, ACI², the joint "qr" update) over the
-   same 399 frames, through `runner.run_filter`.
+   same 399 frames, through `runner.run_filter`;
+7. the port's simulator stages two streams on the card from
+   `simulator.draw(params, 0)` (`convert.stage_stream`), each held against
+   the digest of the port's CPU staging of the same draws that its
+   reference file holds: ids and masks equal but for at most
+   STAGING_FLIPS_MAX entries, each in a frame with a map point at the image
+   border or the depth gate; pixels within 1e-3 px where both are valid;
+   groundtruth within 1e-5;
+8. the large map (bench.py:389-402: 30 clones, 400 SLAM landmarks, 400
+   points per frame, a map of 4,096 points, 8 s, D = 1434) over its 159
+   frames;
+9. the V1_02 replay (tests/test_corpus_replay.py:33-48: 40 s of the padded
+   in-repo `results/suite/truths/V1_02_medium.txt`, the operating point in
+   ANCHORED_MSCKF_INVERSE_DEPTH) over its 799 frames, then
+   `runner.run_filter_from` from the groundtruth state at frame 40 over the
+   first 200 frames.
 
 Each closed loop sets the kernels' launch counts to 0 just before its timed
-run and reads them just after; it must pass the health gate (finite
-covariance, RMSE < 0.05 m, 0.2 < NEES < 30) and land within 0.01 m RMSE of
-the JAX run on the same frames.  The line before the last lists every
-kernel's numbers; the last line is `{"ok": true, "device": {...}}`.
+run and reads them just after, and must launch `symmetric_downdate` at
+least once per frame.  The simulated loops must pass the health gate
+(finite covariance, RMSE < 0.05 m, 0.2 < NEES < 30) and land within 0.01 m
+RMSE of the JAX run on the same frames; the replay must pass
+tests/test_corpus_replay.py's gates (posyaw ATE < 0.08 m and < 1.5°,
+0.5 < NEES < 30, more than 10 landmarks on average over the last three
+quarters) and land within 0.01 m posyaw ATE of the JAX run.  The line
+before the last lists every kernel's numbers; the last line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -55,15 +75,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
 OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
+LARGEMAP_REF = os.path.join(DATA, "largemap_sim8_seed0_ref.npz")
+V102_REF = os.path.join(DATA, "v102_replay40_seed0_ref.npz")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 non-tensor
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 DOWNDATE_SHAPES = [(96, 64), (171, 171), (256, 40), (130, 200), (120, 81),
-                   (270, 231), (1434, 231)]
+                   (270, 231), (1434, 231), (1434, 1395)]
 DOWNDATE_EDGE_SHAPES = [(1, 5), (1, 0), (33, 20), (33, 0)]  # checked only
 OPPOINT_SHAPE = (270, 231)  # D and support width at the operating point
+LARGEMAP_SHAPE = (1434, 1395)  # the large map's D and support width
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
 # blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32)
 QR_SHAPES = [("oracle", 3, 256, 128), ("oracle", 3, 512, 128),
@@ -78,6 +101,17 @@ RMSE_GATE_M = 0.05
 REF_RMSE_SPREAD_M = 0.01
 MSCKF_WARM_FRAMES = 40
 TSQR_FRAMES = (20, 30, 40)  # window full, 32-50 landmarks in use
+# staging on the card against the CPU staging's digest: an f32 rounding may
+# flip a point at the image border or the depth gate in or out of view
+STAGING_FLIPS_MAX = 4
+STAGING_UV_TOL_PX = 1e-3
+STAGING_GT_TOL = 1e-5
+GATE_NEAR_PX, GATE_NEAR_M = 1e-3, 1e-6
+# tests/test_corpus_replay.py:63-115
+REPLAY_ATE_POS_M, REPLAY_ATE_ORI_DEG = 0.08, 1.5
+REPLAY_NEES = (0.5, 30.0)
+REPLAY_MIN_SLAM = 10.0
+RUN_FROM_K0, RUN_FROM_FRAMES, RUN_FROM_RMSE_M = 40, 200, 0.1
 
 
 def emit(obj):
@@ -325,9 +359,10 @@ def _prefix(run, n):
                          gt_p=run.gt_p[:n + 1], gt_v=run.gt_v[:n + 1])
 
 
-def _closed_loop(name, cfg, run, calib, ref, max_tracks):
+def _drive(name, cfg, run, calib, ref, max_tracks):
     """One timed `runner.run_filter` pass with the launch counts set to 0
-    just before it and read just after; the health gate and the JAX check."""
+    just before it and read just after: (row of numbers, outputs, final
+    state); `symmetric_downdate` must launch at least once per frame."""
     import torch
 
     from open_vins_tpu_torch.models import runner
@@ -349,29 +384,36 @@ def _closed_loop(name, cfg, run, calib, ref, max_tracks):
 
     qs, ps, _, covs6, diag = outs
     rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
-    finite = bool(torch.isfinite(state.cov).all().item())
     gap = float((ps.cpu() - torch.as_tensor(ref["ref_p"])).norm(dim=1).max())
-    row = {"phase": name, "frames": n_frames,
+    row = {"phase": name, "frames": n_frames, "state_dim": cfg.state_dim,
            "frames_per_s": n_frames / seconds, "seconds": seconds,
-           "rmse_m": rmse, "nees": nees, "finite": finite,
+           "rmse_m": rmse, "nees": nees,
+           "finite": bool(torch.isfinite(state.cov).all().item()),
            "jax_rmse_m": ref["ref_rmse"], "jax_nees": ref["ref_nees"],
            "max_position_gap_to_jax_m": gap,
            "n_msckf_mean": float(diag.n_msckf.float().mean()),
            "n_slam_mean": float(diag.n_slam.float().mean()),
            "n_slam_used_mean": float(diag.n_slam_used.float().mean()),
            "launches": launches}
+    if launches["symmetric_downdate"] < n_frames:
+        emit(row)
+        raise AssertionError(f"{name}: symmetric_downdate launched "
+                             f"{launches['symmetric_downdate']} times over "
+                             f"{n_frames} frames")
+    return row, outs, state
+
+
+def _closed_loop(name, cfg, run, calib, ref, max_tracks):
+    """`_drive`, then the health gate and the JAX check."""
+    row, _, _ = _drive(name, cfg, run, calib, ref, max_tracks)
     emit(row)
-    healthy = finite and rmse < RMSE_GATE_M and 0.2 < nees < 30.0
-    if not healthy:
+    rmse, nees = row["rmse_m"], row["nees"]
+    if not (row["finite"] and rmse < RMSE_GATE_M and 0.2 < nees < 30.0):
         raise AssertionError(f"{name}: health gate failed")
     if abs(rmse - ref["ref_rmse"]) > REF_RMSE_SPREAD_M:
         raise AssertionError(f"{name}: RMSE {rmse} is more than "
                              f"{REF_RMSE_SPREAD_M} m from the JAX run's "
                              f"{ref['ref_rmse']}")
-    if launches["symmetric_downdate"] < n_frames:
-        raise AssertionError(f"{name}: symmetric_downdate launched "
-                             f"{launches['symmetric_downdate']} times over "
-                             f"{n_frames} frames")
     return row
 
 
@@ -516,6 +558,155 @@ def phase_oppoint_path(run, calib):
     return row
 
 
+def phase_sim_staging(refs):
+    """Stage each stream on the card and hold it against the digest of the
+    port's CPU staging of the same draws.  Returns {name: (sim, params,
+    run, calib)}."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.sim import simulator
+
+    staged = {}
+    for name, ref in refs.items():
+        t0 = time.perf_counter()
+        sim, params, run = convert.stage_stream(ref["meta"], "cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        dig = convert.staging_digest(run)
+        want = {k: ref[f"digest_{k}"] for k in dig}
+        flips, unexplained, uv_err = 0, [], 0.0
+        for i, k in enumerate(want["frames"]):
+            for c in range(params.num_cams):
+                got_ids = set(dig["ids"][i, c][dig["mask"][i, c]].tolist())
+                ref_ids = set(want["ids"][i, c][want["mask"][i, c]].tolist())
+                diff = sorted(got_ids ^ ref_ids)
+                same = ((dig["ids"][i, c] == want["ids"][i, c])
+                        & dig["mask"][i, c] & want["mask"][i, c])
+                uv_err = max(uv_err, float(np.abs(
+                    dig["uv"][i, c][same] - want["uv"][i, c][same]).max(
+                        initial=0.0)))
+                if not diff:
+                    continue
+                flips += len(diff)
+                edge, depth = simulator.view_margins(sim, params, int(k) + 1,
+                                                     c)
+                at_gate = (edge[diff] < GATE_NEAR_PX) | (depth[diff]
+                                                         < GATE_NEAR_M)
+                if not bool(at_gate.any()):
+                    unexplained.append((int(k), c, diff))
+        row = {"phase": "sim_staging", "stream": name, "seconds": seconds,
+               "frames": int(run.frames.t_new.shape[0]),
+               "map_size": params.map_size, "num_pts": params.num_pts,
+               "id_flips": flips, "unexplained_flips": unexplained,
+               "uv_max_abs_err_px": uv_err,
+               "gt_p_max_abs_err_m": float(np.abs(
+                   dig["gt_p"] - want["gt_p"]).max()),
+               "gt_q_max_abs_err": float(np.abs(
+                   dig["gt_q"] - want["gt_q"]).max())}
+        emit(row)
+        ok = (flips <= STAGING_FLIPS_MAX and not unexplained
+              and uv_err <= STAGING_UV_TOL_PX
+              and row["gt_p_max_abs_err_m"] <= STAGING_GT_TOL
+              and row["gt_q_max_abs_err"] <= STAGING_GT_TOL)
+        if not ok:
+            raise AssertionError(f"sim_staging {name}: the card's staging "
+                                 "disagrees with the CPU staging")
+        staged[name] = (sim, params, run, runner.sim_calib(sim))
+    return staged
+
+
+def phase_largemap(staged, ref):
+    """bench.py's large-map point through `runner.run_filter`."""
+    from open_vins_tpu_torch.core.layout import FilterConfig
+
+    meta = ref["meta"]
+    _, _, run, calib = staged
+    row = _closed_loop("main_path_largemap", FilterConfig(**meta["cfg"]),
+                       run, calib, ref, meta["max_tracks"])
+    if not row["n_slam_mean"] > 0:
+        raise AssertionError("SLAM did not engage on the large map")
+    return row
+
+
+def _replay_metrics(qs, ps, covs6, n_slam, run):
+    """tests/test_corpus_replay.py's numbers with the port's eval copies:
+    posyaw ATE (position m, orientation degrees), the mean pose NEES and
+    the mean landmark count over the last three quarters."""
+    from open_vins_tpu_torch.eval import metrics
+    from open_vins_tpu_torch.ops import lie
+
+    ps = ps.cpu().double().numpy()
+    R_est = lie.quat_2_rot(qs.cpu()).double().numpy()
+    R_gt = lie.quat_2_rot(run.gt_q[1:].cpu()).double().numpy()
+    gt_p = run.gt_p[1:].cpu().double().numpy()
+    ori, pos = metrics.ate(ps, R_est.transpose(0, 2, 1), gt_p,
+                           R_gt.transpose(0, 2, 1), method="posyaw")
+    n = len(gt_p)
+    sl = slice(n // 4, n)
+    _, _, full = metrics.nees(ps[sl], R_est[sl], gt_p[sl], R_gt[sl],
+                              covs6.cpu().double().numpy()[sl])
+    return pos.rmse, ori.rmse, full.mean, float(n_slam[n // 4:].float().mean())
+
+
+def phase_v102_replay(staged, ref):
+    """The V1_02 replay through `runner.run_filter`, with the corpus
+    replay's gates, then `run_filter_from` from the groundtruth state."""
+    import torch
+
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import manager, runner
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.ops import lie
+
+    meta = ref["meta"]
+    cfg = FilterConfig(**meta["cfg"])
+    _, _, run, calib = staged
+    row, outs, _ = _drive("main_path_v102_replay", cfg, run, calib, ref,
+                          meta["max_tracks"])
+    qs, ps, _, covs6, diag = outs
+    ate_p, ate_o, nees, n_slam = _replay_metrics(qs, ps, covs6, diag.n_slam,
+                                                 run)
+    row.update(ate_pos_m=ate_p, ate_ori_deg=ate_o, nees_full=nees,
+               n_slam_last3q_mean=n_slam,
+               jax_ate_pos_m=float(ref["ref_ate_pos_m"]),
+               jax_ate_ori_deg=float(ref["ref_ate_ori_deg"]),
+               jax_nees_full=float(ref["ref_nees_full"]))
+    emit(row)
+    ok = (row["finite"] and ate_p < REPLAY_ATE_POS_M
+          and ate_o < REPLAY_ATE_ORI_DEG and REPLAY_NEES[0] < nees
+          < REPLAY_NEES[1] and n_slam > REPLAY_MIN_SLAM
+          and abs(ate_p - row["jax_ate_pos_m"]) <= REF_RMSE_SPREAD_M)
+    if not ok:
+        raise AssertionError("main_path_v102_replay: a replay gate failed")
+
+    # run_filter_from: the groundtruth state at frame K0, the first
+    # RUN_FROM_FRAMES frames (tests/test_corpus_replay.py:91-115)
+    k0, n = RUN_FROM_K0, RUN_FROM_FRAMES
+    state0 = manager.initialize_from_gt(
+        cfg, run.gt_q[k0], run.gt_p[k0], run.gt_v[k0], calib.bias_g0,
+        calib.bias_a0, float(run.frames.t_new[k0 - 1]),
+        calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
+        calib_ext_p=calib.cam_p_IinC, calib_intr=calib.cam_intr)
+    t0 = time.perf_counter()
+    st, fouts = runner.run_filter_from(cfg, tri.TriangulationOptions(),
+                                       _prefix(run, n), state0, k0,
+                                       max_tracks=meta["max_tracks"],
+                                       device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    err = fouts[1][k0:] - run.gt_p[1:n + 1][k0:]
+    rmse = float(err.norm(dim=1).pow(2).mean().sqrt())
+    finite = bool(torch.isfinite(st.cov).all().item())
+    emit({"phase": "run_filter_from", "k0": k0, "frames": n,
+          "seconds": seconds, "rmse_m": rmse, "finite": finite})
+    if not (finite and rmse < RUN_FROM_RMSE_M):
+        raise AssertionError(f"run_filter_from: RMSE {rmse} m")
+    return row
+
+
 def _kernel_numbers(row):
     """A kernel's numbers for the kernels line: `ms` and `library_ms` are
     device times (`device_ms`); the per-call times stand beside them."""
@@ -543,6 +734,11 @@ def main():
     tsqr_launches = phase_tsqr(run, calib, convert.load_reference(
         OPPOINT_REF))
     op_row = phase_oppoint_path(run, calib)
+    refs = {"largemap": convert.load_reference(LARGEMAP_REF),
+            "v102_replay": convert.load_reference(V102_REF)}
+    staged = phase_sim_staging(refs)
+    lm_row = phase_largemap(staged["largemap"], refs["largemap"])
+    rp_row = phase_v102_replay(staged["v102_replay"], refs["v102_replay"])
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
@@ -553,6 +749,8 @@ def main():
         "source": "open_vins_tpu_torch/ops/csrc/symmetric_downdate.cu",
         "replaces": "open_vins_tpu/ops/pallas_kernels.py:32",
         "launches": op_row["launches"]["symmetric_downdate"],
+        "launches_largemap": lm_row["launches"]["symmetric_downdate"],
+        "launches_v102_replay": rp_row["launches"]["symmetric_downdate"],
         **_kernel_numbers(dd),
     }, {
         "name": "householder_qr_blocks", "route": "cuda",

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -19,7 +20,12 @@ from open_vins_tpu_torch.core.state import VioState
 from open_vins_tpu_torch.models.feature_table import FeatureTable
 from open_vins_tpu_torch.models.manager import FrameInput
 from open_vins_tpu_torch.models.propagator import ImuWindow
+from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.models.runner import SimCalib, SimRun
+from open_vins_tpu_torch.sim import simulator, trajectories
+from open_vins_tpu_torch.sim.simulator import CalibDraws, SimDraws
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FRAME_KEYS = ("win_t", "win_w", "win_a", "t_new", "ids", "uv", "uvn", "mask")
 
@@ -68,12 +74,38 @@ def frames_to_numpy(frames: FrameInput) -> dict:
     return out
 
 
+def sim_draws_from_numpy(arrays) -> SimDraws:
+    """A simulator's unit draws (SimDraws field names) as CPU tensors:
+    floats as float32, the map's camera indices as int32."""
+    return SimDraws(**{
+        f.name: torch.as_tensor(np.array(
+            arrays[f.name],
+            dtype=np.int32 if f.name == "map_cam" else np.float32))
+        for f in dataclasses.fields(SimDraws)})
+
+
+def sim_draws_to_numpy(draws: SimDraws) -> dict:
+    return _to_numpy(draws)
+
+
+def calib_draws_from_numpy(arrays) -> CalibDraws:
+    return CalibDraws(**{f.name: torch.as_tensor(np.array(
+        arrays[f.name], dtype=np.float32))
+        for f in dataclasses.fields(CalibDraws)})
+
+
+def calib_draws_to_numpy(draws: CalibDraws) -> dict:
+    return _to_numpy(draws)
+
+
 def load_reference(path) -> dict:
     """The JAX run stored in an `.npz` (a staged-run file or a `*_ref.npz`
     beside one): its per-frame `ref_*` arrays, `ref_rmse`/`ref_nees` as
-    floats and `meta` (the configuration, decoded from JSON)."""
+    floats, `meta` (the configuration, decoded from JSON) and, where the
+    file has one, the staging digest as `digest_*` (`staging_digest`)."""
     with np.load(path) as z:
-        ref = {k: z[k] for k in z.files if k.startswith("ref_")}
+        ref = {k: z[k] for k in z.files
+               if k.startswith("ref_") or k.startswith("digest_")}
         ref["meta"] = json.loads(str(z["meta"]))
     ref["ref_rmse"] = float(ref["ref_rmse"])
     ref["ref_nees"] = float(ref["ref_nees"])
@@ -96,3 +128,35 @@ def load_staged_run(path, device=None):
     calib = SimCalib(**{f.name: _tensor(arrays[f.name], dev)
                         for f in dataclasses.fields(SimCalib)})
     return run, calib, load_reference(path)
+
+
+def stage_stream(meta, device=None):
+    """(sim, params, run): the port's simulator built from `meta` (a
+    reference file's configuration: `sim` holds the SimParams fields,
+    `seed` the draw seed, `traj` None for the sine trajectory or
+    {"file": path relative to the repository root, "n_ctrl", "dt"} for a
+    padded trajectory file) and its whole stream staged on `device`."""
+    dev = resolve_device(device)
+    params = simulator.SimParams(**meta["sim"])
+    traj = None
+    if meta.get("traj"):
+        spec = meta["traj"]
+        traj, _ = trajectories.load_trajectory_padded(
+            os.path.join(ROOT, spec["file"]), spec["n_ctrl"], dt=spec["dt"],
+            device=dev)
+    sim = simulator.build(params, seed=meta["seed"], traj=traj,
+                          draws=simulator.draw(params, meta["seed"]),
+                          device=dev)
+    return sim, params, runner.stage_run(sim, params)
+
+
+def staging_digest(run: SimRun) -> dict:
+    """A staged stream's fingerprint: the groundtruth positions and
+    quaternions of every frame, and ids, mask and uv of the first, middle
+    and last frame (as numpy arrays)."""
+    n = run.frames.t_new.shape[0]
+    k = torch.tensor([0, n // 2, n - 1], device=run.frames.ids.device)
+    out = {"gt_p": run.gt_p, "gt_q": run.gt_q, "frames": k,
+           "ids": run.frames.ids[k], "mask": run.frames.mask[k],
+           "uv": run.frames.uv[k]}
+    return {key: v.detach().cpu().numpy() for key, v in out.items()}

@@ -229,12 +229,14 @@ def _require_ported(cfg: FilterConfig) -> None:
 
 def marginalize_oldest(state: VioState, table: ft.FeatureTable,
                        cfg: FilterConfig):
-    """Step 1: if the ring is full, marginalize the oldest clone (a
-    device-side select).  GLOBAL_3D landmarks have no anchor clone, so
-    nothing is re-anchored first (UpdaterSLAM::change_anchors)."""
+    """Step 1: if the ring is full, move the landmarks anchored on the
+    oldest clone to the newest (`updater_slam.change_anchors`, an identity
+    for the global representations) and marginalize the oldest clone (a
+    device-side select)."""
     full = state.n_clones >= cfg.max_clones
     slot_old = oldest_slot(state, cfg)
-    state_m = ekf.marginalize_clone(state, cfg, slot_old)
+    state_m = ekf.marginalize_clone(slam.change_anchors(state, cfg, slot_old),
+                                    cfg, slot_old)
     return (select(full, state_m, state),
             select(full, ft.clear_clone_column(table, slot_old), table))
 

@@ -1,11 +1,12 @@
-"""Closed-loop runner: initialize from groundtruth and step the filter over
-staged frames.
+"""Closed-loop runner: stage the sensor stream, initialize from groundtruth
+and step the filter over the staged frames.
 
-Counterpart of `run_filter` in `open_vins_tpu/models/runner.py`
-(run_simulation.cpp:34-110): the reference scans the step with `lax.scan`;
-here a Python loop calls `manager.step_frame` once per frame and stacks the
-same outputs.  The frames are staged by the JAX simulator and handed over
-as arrays (see `open_vins_tpu_torch/convert.py`).
+Counterpart of `stage_run`, `run_filter` and `run_filter_from` in
+`open_vins_tpu/models/runner.py` (run_simulation.cpp:34-110): the reference
+scans the step with `lax.scan`; here a Python loop calls
+`manager.step_frame` once per frame and stacks the same outputs.  The frames
+come from the port's simulator (`stage_run`) or from a staged-run file
+(`open_vins_tpu_torch/convert.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from open_vins_tpu_torch.models import manager
 from open_vins_tpu_torch.models import triangulation as tri
 from open_vins_tpu_torch.models.propagator import ImuWindow
 from open_vins_tpu_torch.ops import lie
+from open_vins_tpu_torch.sim import simulator
 
 
 @dataclasses.dataclass
@@ -43,6 +45,35 @@ class SimCalib(TensorRecord):
     cam_R_ItoC: torch.Tensor  # [N, 3, 3]
     cam_p_IinC: torch.Tensor  # [N, 3]
     cam_intr: torch.Tensor  # [N, 8]
+
+
+def stage_run(sim: simulator.SimData, params: simulator.SimParams) -> SimRun:
+    """The whole sensor stream packed per frame, on the simulator's device.
+
+    Frame k (1..n_frames-1; frame 0 is the initial state) takes the IMU
+    steps [(k-1)·ipc, k·ipc], both ends included: the rates divide, so no
+    interpolation is needed."""
+    ipc = simulator.imu_per_cam(params)
+    n_frames = simulator.n_cam_frames(params)
+    dev = sim.map_pts.device
+    imu = simulator.get_imu(sim, params, torch.arange(
+        simulator.n_imu_steps(params) + 1, device=dev))
+    cams = simulator.get_cam(sim, params, torch.arange(n_frames, device=dev))
+    win = ((torch.arange(1, n_frames, device=dev)[:, None] - 1) * ipc
+           + torch.arange(ipc + 1, device=dev)[None, :])  # [K-1, ipc+1]
+    frames = manager.FrameInput(
+        win=ImuWindow(t=imu.t[win], w=imu.wm[win], a=imu.am[win]),
+        t_new=cams.t[1:], ids=cams.ids[1:], uv=cams.uvs[1:],
+        uvn=cams.uvs_norm[1:], mask=cams.mask[1:])
+    gt_q, gt_p, gt_v, _, _ = simulator.get_state(sim, params, cams.t)
+    return SimRun(frames=frames, gt_q=gt_q, gt_p=gt_p, gt_v=gt_v)
+
+
+def sim_calib(sim: simulator.SimData) -> SimCalib:
+    """What `run_filter` reads of a simulator the port built."""
+    return SimCalib(bias_g0=sim.bias_g_traj[0], bias_a0=sim.bias_a_traj[0],
+                    cam_R_ItoC=sim.cam_R_ItoC, cam_p_IinC=sim.cam_p_IinC,
+                    cam_intr=sim.cam_intr)
 
 
 def frame_at(frames: manager.FrameInput, k: int) -> manager.FrameInput:
@@ -90,6 +121,31 @@ def run_filter(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
         for k, _ in diags[0].items()})
     return state, (torch.stack(qs), torch.stack(ps), torch.stack(vs),
                    torch.stack(covs), diag)
+
+
+def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
+                    run: SimRun, state0, k0: int, max_tracks: int = 256,
+                    device=None):
+    """`run_filter`, but from a given initial state at frame index k0 (the
+    replay's real-initialization entry, InertialInitializer.cpp:104-158 →
+    VioManagerHelper.cpp:78-188).  The first frame stepped is k0, whose IMU
+    window starts at `run.frames.t_new[k0-1]` = `state0.t`; the outputs of
+    the frames before k0 hold `state0`, as the reference's skipped scan
+    steps do.
+
+    Returns (final_state, per-frame (q, p, v, cov[:6,:6])) stacked over all
+    frames (no StepDiag, as in the reference)."""
+    dev = resolve_device(device)
+    run = _to(run, dev)
+    state = _to(state0, dev)
+    table = ft.init_table(cfg, max_tracks, dev)
+    n = run.frames.t_new.shape[0]
+    outs = [(state.q, state.p, state.v, state.cov[:6, :6])] * min(k0, n)
+    for k in range(k0, n):
+        state, table, _ = manager.step_frame(state, table, cfg, tri_opts,
+                                             frame_at(run.frames, k))
+        outs.append((state.q, state.p, state.v, state.cov[:6, :6]))
+    return state, tuple(torch.stack(x) for x in zip(*outs))
 
 
 def pose_metrics(qs, ps, covs6, gt_q, gt_p):

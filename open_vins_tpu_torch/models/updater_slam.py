@@ -1,9 +1,8 @@
-"""SLAM landmark pipeline: delayed initialization, the landmark update and
-eviction, for the joint per-frame vision update.
+"""SLAM landmark pipeline: delayed initialization, the landmark update,
+eviction and re-anchoring, for the joint per-frame vision update.
 
 Counterpart of `open_vins_tpu/models/updater_slam.py` (UpdaterSLAM parity,
-UpdaterSLAM.cpp:58-647) in the GLOBAL_3D representation, as the bench's
-operating point runs it:
+UpdaterSLAM.cpp:58-647):
 
   * `promotion_candidates`: the full-window tracks reserved for SLAM this
     frame (VioManager.cpp:410-453 triage);
@@ -14,14 +13,17 @@ operating point runs it:
     inserted into free landmark slots jointly, with the leftover rows
     returned for the joint update (the reference's `collect=True` form);
   * `evict`: landmarks whose track died or that keep failing the gate are
-    dropped (their covariance rows and columns zeroed).
+    dropped (their covariance rows and columns zeroed);
+  * `change_anchors`: landmarks anchored on the clone about to be
+    marginalized move to the newest clone (an exact covariance row map).
 
-Under GLOBAL_3D the stored λ is the global point p_FinG: the conversions
-of the reference's `landmark_rep` are the identity, ∂p_FinG/∂λ = I, and
-there is no anchor to change when a clone is marginalized
-(`UpdaterSLAM::change_anchors` does nothing).  The other five
-representations, aruco landmarks, the reference-exact sequential ordering
-(`update`, `_delayed_init_sequential`) and `ekf.initialize_landmark` /
+The stored λ follows cfg.feat_rep_slam (`landmark_rep`): GLOBAL_3D,
+GLOBAL_FULL_INVERSE_DEPTH, ANCHORED_3D, ANCHORED_FULL_INVERSE_DEPTH or
+ANCHORED_MSCKF_INVERSE_DEPTH.  Rows are linearized in the global point and
+chained to λ, and for the anchored representations to the anchor clone's
+columns (`_chain_anchored`).  The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE, aruco
+landmarks, the reference-exact sequential ordering (`update`,
+`_delayed_init_sequential`) and `ekf.initialize_landmark` /
 `marginalize_slam_slot` are not ported yet: `require_ported` raises for
 them.  Lookups use plain indexing; the one-hot contractions of the
 reference are TPU workarounds.
@@ -35,6 +37,7 @@ from open_vins_tpu_torch.core import ekf
 from open_vins_tpu_torch.core.layout import FilterConfig
 from open_vins_tpu_torch.core.state import VioState, clone_age_order
 from open_vins_tpu_torch.models import feature_table as ft
+from open_vins_tpu_torch.models import landmark_rep as lrep
 from open_vins_tpu_torch.models import triangulation as tri
 from open_vins_tpu_torch.models import update_helper as uh
 from open_vins_tpu_torch.models.feature_table import FeatureTable
@@ -48,13 +51,17 @@ _INIT_VAR_CAP = 1e4  # max inserted landmark variance (units² of the rep):
 INIT_FLAG_READ = "delayed_init.flag_read"
 
 
+PORTED_REPS = (lrep.GLOBAL_3D, lrep.GLOBAL_FULL_INVERSE_DEPTH,
+               lrep.ANCHORED_3D, lrep.ANCHORED_FULL_INVERSE_DEPTH,
+               lrep.ANCHORED_MSCKF_INVERSE_DEPTH)
+
+
 def require_ported(cfg: FilterConfig) -> None:
     """Raise for a SLAM configuration the port does not have yet."""
-    if cfg.feat_rep_slam != "GLOBAL_3D":
+    if cfg.feat_rep_slam not in PORTED_REPS:
         raise NotImplementedError(
             f"landmark representation {cfg.feat_rep_slam!r} is not ported "
-            "yet (ROADMAP queue 1: the other five representations); use "
-            "GLOBAL_3D")
+            "yet (ROADMAP queue 1); use one of " + ", ".join(PORTED_REPS))
     if cfg.num_aruco_tags > 0:
         raise NotImplementedError(
             "aruco landmarks (num_aruco_tags > 0) are not ported yet "
@@ -76,6 +83,67 @@ def _set_slam_cols(H_x, cfg: FilterConfig, H_lam):
     cols = (cfg.slam_off + 3 * torch.arange(L, device=H_x.device)[:, None]
             + torch.arange(3, device=H_x.device)[None, :])  # [L, 3]
     return H_x.scatter(2, cols[:, None, :].expand(L, rows, 3), H_lam)
+
+
+def _add_clone_block(H_x, cfg: FilterConfig, slot, add):
+    """H_x [F, rows, D] += add [F, rows, 6] at the columns of clone slot
+    slot[f] of each feature f."""
+    F, rows, _ = add.shape
+    cols = (cfg.clones_off + 6 * slot.long()[:, None]
+            + torch.arange(6, device=H_x.device)[None, :])  # [F, 6]
+    return H_x.scatter_add(2, cols[:, None, :].expand(F, rows, 6), add)
+
+
+def _anchor_of(state: VioState, fej: bool):
+    """Every landmark slot's anchor clone slot and the anchor's clone and
+    extrinsic values (clone values at their FEJ when `fej`)."""
+    a_slot = state.slam_anchor_slot.long()
+    a_cam = state.slam_anchor_cam.long()
+    q_c = (state.clones_q_fej if fej else state.clones_q)[a_slot]
+    p_c = (state.clones_p_fej if fej else state.clones_p)[a_slot]
+    return (a_slot, q_c, p_c, state.calib_ext_q[a_cam],
+            state.calib_ext_p[a_cam])
+
+
+def landmark_global(state: VioState, cfg: FilterConfig, fej: bool):
+    """[L, 3] p_FinG of every landmark slot under cfg.feat_rep_slam.
+
+    For the anchored representations the FEJ global position is the
+    current one: the reference sets p_FinG_fej = p_FinG for relative
+    representations (UpdaterHelper.cpp:284-287), whose FEJ lives in the
+    anchor-frame linearization instead (`_chain_anchored`)."""
+    rep = cfg.feat_rep_slam
+    fej = fej and not lrep.is_anchored(rep)
+    lam = state.slam_p_fej if fej else state.slam_p
+    if not lrep.needs_lam_jacobian(rep):
+        return lam
+    _, q_c, p_c, q_e, p_e = _anchor_of(state, fej=False)
+    return lrep.to_global(rep, lam, q_c, p_c, q_e, p_e)
+
+
+def _chain_anchored(state: VioState, cfg: FilterConfig, H_x, H_fg,
+                    p_G_cur):
+    """Global-point rows (H_fg = ∂z/∂p_FinG [L, rows, 3]) to λ rows, with
+    the anchored representations' anchor-clone columns added to H_x.
+    Linearization points as the reference's (UpdaterHelper.cpp:87-96): for
+    the anchored representations the current global point in the FEJ
+    anchor frame; for the global inverse depth the stored FEJ λ.
+    Returns (H_x, H_lam)."""
+    rep = cfg.feat_rep_slam
+    if not lrep.needs_lam_jacobian(rep):
+        return H_x, H_fg
+    fej = cfg.use_fej
+    a_slot, q_c, p_c, q_e, p_e = _anchor_of(state, fej)
+    if lrep.is_anchored(rep):
+        lam_lin = lrep.from_global(rep, p_G_cur, q_c, p_c, q_e, p_e)
+    else:
+        lam_lin = state.slam_p_fej if fej else state.slam_p
+    H_lam = H_fg @ lrep.d_pFinG_d_lam(rep, lam_lin, q_c, q_e)
+    if lrep.is_anchored(rep):
+        dth, dp = lrep.d_pFinG_d_anchor(rep, lam_lin, q_c, q_e, p_e)
+        H_x = _add_clone_block(H_x, cfg, a_slot,
+                               torch.cat([H_fg @ dth, H_fg @ dp], dim=-1))
+    return H_x, H_lam
 
 
 def _set_rows(a, idx, vals):
@@ -158,6 +226,32 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
                               cand_ok)
 
 
+def _init_to_lam(state: VioState, cfg: FilterConfig, H_x, H_fg, p_f):
+    """The init systems of F candidates at triangulated points p_f [F, 3],
+    in λ: every new landmark is anchored on the newest clone and camera 0.
+    The value λ₀ uses the current anchor pose, the Jacobians the
+    triangulated point in the FEJ anchor frame (UpdaterHelper.cpp:87-96).
+    Returns (H_x, H_lam, λ₀ [F, 3])."""
+    rep = cfg.feat_rep_slam
+    if not lrep.needs_lam_jacobian(rep):
+        return H_x, H_fg, p_f
+    head = state.head.long()
+    q_c, p_c = state.clones_q[head], state.clones_p[head]
+    q_e, p_e = state.calib_ext_q[0], state.calib_ext_p[0]
+    lam0 = lrep.from_global(rep, p_f, q_c, p_c, q_e, p_e)
+    lam_lin = lam0
+    if cfg.use_fej and lrep.is_anchored(rep):
+        q_c = state.clones_q_fej[head]
+        lam_lin = lrep.from_global(rep, p_f, q_c, state.clones_p_fej[head],
+                                   q_e, p_e)
+    H_lam = H_fg @ lrep.d_pFinG_d_lam(rep, lam_lin, q_c, q_e)
+    if lrep.is_anchored(rep):
+        dth, dp = lrep.d_pFinG_d_anchor(rep, lam_lin, q_c, q_e, p_e)
+        H_x = _add_clone_block(H_x, cfg, head.expand(p_f.shape[0]),
+                               torch.cat([H_fg @ dth, H_fg @ dp], dim=-1))
+    return H_x, H_lam, lam0
+
+
 def _delayed_init_work(state: VioState, cfg: FilterConfig,
                        table: FeatureTable,
                        tri_opts: tri.TriangulationOptions, gather_fn, rows,
@@ -181,11 +275,11 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     free_order = torch.sort(torch.where(~state.slam_valid, slot_ids,
                                         L)).values
 
-    # rotated init system of every candidate (pre-frame linearization);
-    # GLOBAL_3D: λ = p_FinG, so the point rows are the λ rows
+    # rotated init system of every candidate (pre-frame linearization)
     ctx0 = uh.obs_context(state, cfg, gobs.clone_slot[0], gobs.cam[0])
     H_x, H_lam, res, row_mask = uh.feature_jacobian_batch(state, cfg, gobs,
                                                           p_f, p_f, ctx0)
+    H_x, H_lam, lam0 = _init_to_lam(state, cfg, H_x, H_lam, p_f)
 
     # kill non-finite/absurd rows BEFORE the QR: a rejected candidate keeps
     # the [0,0,1] placeholder point, whose projection can overflow; one bad
@@ -254,12 +348,12 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
         (idx[:, None], idx[None, :]), P_FF, accumulate=True)
     cov = state.cov + rows_add + rows_add.T + corner
 
-    lam_new = p_f + (R1inv @ res1[..., None])[..., 0]
+    lam_new = lam0 + (R1inv @ res1[..., None])[..., 0]
     head = state.head.to(torch.int32)
     state = state.replace(
         cov=0.5 * (cov + cov.T),
         slam_p=_set_rows(state.slam_p, slot_eff, lam_new),
-        slam_p_fej=_set_rows(state.slam_p_fej, slot_eff, p_f),
+        slam_p_fej=_set_rows(state.slam_p_fej, slot_eff, lam0),
         slam_id=_set_rows(state.slam_id, slot_eff, feat_ids.to(torch.int32)),
         slam_valid=_set_rows(state.slam_valid, slot_eff,
                              torch.ones_like(ok)),
@@ -324,10 +418,13 @@ def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
         uv=uv, uvn=uvn,
         mask=m_w.reshape(L, O) & has_row[:, None] & clone_valid_w[None, :])
 
-    p_G_fej = state.slam_p_fej if cfg.use_fej else state.slam_p
+    p_G_cur = landmark_global(state, cfg, fej=False)
+    p_G_fej = (landmark_global(state, cfg, fej=True) if cfg.use_fej
+               else p_G_cur)
     ctx_w = uh.obs_context(state, cfg, slot_idx, cam_idx)
-    H_x, H_lam, res, row_mask = uh.feature_jacobian_batch(
-        state, cfg, gobs, state.slam_p, p_G_fej, ctx_w)
+    H_x, H_fg, res, row_mask = uh.feature_jacobian_batch(
+        state, cfg, gobs, p_G_cur, p_G_fej, ctx_w)
+    H_x, H_lam = _chain_anchored(state, cfg, H_x, H_fg, p_G_cur)
     n_valid = row_mask.sum(dim=-1, dtype=torch.int32)
     H_full = _set_slam_cols(H_x, cfg, H_lam)
 
@@ -352,6 +449,62 @@ def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
     state = state.replace(slam_fail=state.slam_fail + failed.to(torch.int32))
     return (state, table, H_big, res_big, failed.to(torch.int32),
             ok.sum(dtype=torch.int32))
+
+
+def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
+    """Re-anchor the landmarks whose anchor clone is about to be
+    marginalized onto the newest clone (UpdaterSLAM::change_anchors /
+    perform_anchor_change, UpdaterSLAM.cpp:481-647).
+
+    The covariance takes the exact row map δλ_new = J [δλ_old; δx_Aold;
+    δx_Anew] as cov' = M cov Mᵀ, with M the identity but for the landmark
+    rows; the Jacobians at FEJ values, the value transform at the current
+    values, and the landmark's FEJ reset to the transformed FEJ value.
+    Each landmark's map touches only its own rows, so all of them go into
+    one M and two D×D products (row maps with disjoint rows commute).
+    An identity for max_slam = 0 and the global representations."""
+    rep = cfg.feat_rep_slam
+    if cfg.max_slam == 0 or not lrep.is_anchored(rep):
+        return state
+    L, D = cfg.max_slam, cfg.state_dim
+    dtype, dev = state.cov.dtype, state.cov.device
+    new_slot, dying = state.head.long(), dying_slot.long()
+    need = state.slam_valid & (state.slam_anchor_slot == dying_slot)  # [L]
+    a_cam = state.slam_anchor_cam.long()
+    q_e, p_e = state.calib_ext_q[a_cam], state.calib_ext_p[a_cam]
+
+    lam_new_f, J_lam, J_xo, J_xn = lrep.anchor_change_jacobians(
+        rep, state.slam_p_fej, state.clones_q_fej[dying],
+        state.clones_p_fej[dying], state.clones_q_fej[new_slot],
+        state.clones_p_fej[new_slot], q_e, p_e)
+    p_G = lrep.to_global(rep, state.slam_p, state.clones_q[dying],
+                         state.clones_p[dying], q_e, p_e)
+    lam_new = lrep.from_global(rep, p_G, state.clones_q[new_slot],
+                               state.clones_p[new_slot], q_e, p_e)
+
+    # each landmark's [3, D] block row: the dying and the new anchor's
+    # clone columns (the new one wins if the slots coincide) and its own
+    # landmark columns; an identity block row where nothing moves
+    nd = need[:, None, None]
+    rows = torch.zeros((L, 3, D), dtype=dtype, device=dev)
+    six = torch.arange(6, device=dev)
+    rows[:, :, cfg.clones_off + 6 * dying + six] = torch.where(nd, J_xo, 0.0)
+    rows[:, :, cfg.clones_off + 6 * new_slot + six] = torch.where(nd, J_xn,
+                                                                  0.0)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    lam_cols = (cfg.slam_off + 3 * torch.arange(L, device=dev)[:, None]
+                + torch.arange(3, device=dev)[None, :])  # [L, 3]
+    rows = rows.scatter(2, lam_cols[:, None, :].expand(L, 3, 3),
+                        torch.where(nd, J_lam, eye3))
+    M = torch.eye(D, dtype=dtype, device=dev)
+    M[cfg.slam_off:cfg.slam_off + 3 * L] = rows.reshape(3 * L, D)
+    cov = M @ state.cov @ M.T
+    return state.replace(
+        cov=0.5 * (cov + cov.T),
+        slam_p=torch.where(need[:, None], lam_new, state.slam_p),
+        slam_p_fej=torch.where(need[:, None], lam_new_f, state.slam_p_fej),
+        slam_anchor_slot=torch.where(need, state.head.to(torch.int32),
+                                     state.slam_anchor_slot))
 
 
 def evict(state: VioState, cfg: FilterConfig, table: FeatureTable):

@@ -1,9 +1,10 @@
-"""Camera projection models (pinhole radtan + equidistant): distortion and
-its analytic Jacobians.
+"""Camera projection models (pinhole radtan + equidistant): distortion, its
+analytic Jacobians and undistortion.
 
-Counterpart of `distort` and `distort_jacobians_soa` in
+Counterpart of `distort`, `undistort` and `distort_jacobians_soa` in
 `open_vins_tpu/ops/cameras.py` (reference math CamRadtan.h:100-200,
-CamEqui.h:100-235).  Intrinsics layout: zeta = [fx, fy, cx, cy, d0..d3];
+CamEqui.h:100-235).  Undistortion runs the reference's fixed iteration
+count, so both packages do the same arithmetic (not OpenCV's loop).  Intrinsics layout: zeta = [fx, fy, cx, cy, d0..d3];
 radtan d = [k1, k2, p1, p2], equi d = [k1, k2, k3, k4].
 """
 
@@ -13,6 +14,8 @@ import torch
 
 RADTAN = "radtan"
 EQUI = "equi"
+
+_UNDISTORT_ITERS = 25  # the reference's fixed count (<1e-10 at the corners)
 
 
 def _distort_norm_radtan(zeta, xy):
@@ -46,6 +49,49 @@ def distort(model: str, zeta, uv_norm):
     d = _DISTORT_NORM[model](zeta, uv_norm)
     fx, fy, cx, cy = zeta[..., 0], zeta[..., 1], zeta[..., 2], zeta[..., 3]
     return torch.stack([fx * d[..., 0] + cx, fy * d[..., 1] + cy], dim=-1)
+
+
+def _undistort_norm_radtan(zeta, target):
+    """Fixed-point iteration x <- (x_d - tangential(x)) / radial(x)."""
+    k1, k2, p1, p2 = zeta[..., 4], zeta[..., 5], zeta[..., 6], zeta[..., 7]
+    x, y = target[..., 0], target[..., 1]
+    for _ in range(_UNDISTORT_ITERS):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (target[..., 0] - dx) / radial, (target[..., 1] - dy) / radial
+    return torch.stack([x, y], dim=-1)
+
+
+def _undistort_norm_equi(zeta, target):
+    """|xy_d| = θ_d: scalar Newton for θ, then rescale by tan θ / θ_d."""
+    k1, k2, k3, k4 = zeta[..., 4], zeta[..., 5], zeta[..., 6], zeta[..., 7]
+    theta_d = torch.sqrt(torch.clamp(torch.sum(target * target, dim=-1),
+                                     min=1e-24))
+    theta = theta_d
+    for _ in range(_UNDISTORT_ITERS):
+        t2 = theta * theta
+        poly = 1.0 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4)))
+        dpoly = (3.0 * k1 * t2 + 5.0 * k2 * t2 * t2 + 7.0 * k3 * t2 ** 3
+                 + 9.0 * k4 * t2 ** 4)
+        f = theta * poly - theta_d
+        df = poly + dpoly
+        theta = theta - f / torch.where(torch.abs(df) > 1e-6, df, 1.0)
+    scale = torch.where(theta_d > 1e-9, torch.tan(theta) / theta_d, 1.0)
+    return target * scale[..., None]
+
+
+_UNDISTORT_NORM = {RADTAN: _undistort_norm_radtan, EQUI: _undistort_norm_equi}
+
+
+def undistort(model: str, zeta, uv_px):
+    """Raw pixel coords -> normalized image coords. (..., 2) -> (..., 2);
+    zeta [8] (or broadcastable [..., 8])."""
+    fx, fy, cx, cy = zeta[..., 0], zeta[..., 1], zeta[..., 2], zeta[..., 3]
+    target = torch.stack([(uv_px[..., 0] - cx) / fx,
+                          (uv_px[..., 1] - cy) / fy], dim=-1)
+    return _UNDISTORT_NORM[model](zeta, target)
 
 
 def _distort_jac_soa_radtan(zc, x, y):

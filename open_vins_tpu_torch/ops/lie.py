@@ -26,6 +26,16 @@ def skew(v):
     return flat.reshape(v.shape[:-1] + (3, 3))
 
 
+def unskew(m):
+    """Inverse of `skew`. (..., 3, 3) -> (..., 3)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
+def quat_inv(q):
+    """Quaternion inverse (the conjugate of a unit quaternion)."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
 def quat_norm(q):
     """Normalize, keeping the scalar part non-negative (JPL canonical)."""
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -182,6 +192,21 @@ def Jr_so3(w):
     return Jl_so3(-w)
 
 
+def Jl_so3_inv(w):
+    """Inverse left Jacobian of SO(3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    t = torch.sqrt(torch.clamp(theta2, min=_EPS))
+    small = theta2 < 1e-8
+    half = 0.5 * t
+    one = torch.ones_like(theta2)
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - 0.5 * t / torch.tan(torch.where(small, one, half)))
+        / torch.where(small, one, theta2))
+    W = skew(w)
+    return _eye_like(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
+
+
 def Omega(w):
     """Quaternion-kinematics Ω(w) (JPL): q̇ = 0.5 Ω(w) q."""
     W = -skew(w)
@@ -189,3 +214,37 @@ def Omega(w):
     bot = torch.cat([-w[..., None, :], torch.zeros_like(w[..., :1, None])],
                     dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def _homogeneous(top):
+    """[..., 3, 4] -> [..., 4, 4] with the last row [0, 0, 0, 1]."""
+    bot = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype,
+                      device=top.device)
+    bot[..., 0, 3] = 1.0
+    return torch.cat([top, bot], dim=-2)
+
+
+def exp_se3(v):
+    """SE(3) exponential: v = [ω; ρ] (..., 6) -> (..., 4, 4)."""
+    w, rho = v[..., :3], v[..., 3:]
+    t = (Jl_so3(w) @ rho[..., None])
+    return _homogeneous(torch.cat([exp_so3(w), t], dim=-1))
+
+
+def log_se3(T):
+    """SE(3) logarithm: (..., 4, 4) -> [ω; ρ] (..., 6)."""
+    w = log_so3(T[..., :3, :3])
+    rho = (Jl_so3_inv(w) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([w, rho], dim=-1)
+
+
+def hat_se3(v):
+    """se(3) hat: (..., 6) -> (..., 4, 4)."""
+    top = torch.cat([skew(v[..., :3]), v[..., 3:, None]], dim=-1)
+    return torch.cat([top, torch.zeros_like(top[..., :1, :])], dim=-2)
+
+
+def inv_se3(T):
+    """Inverse of a homogeneous SE(3) matrix (..., 4, 4)."""
+    Rt = T[..., :3, :3].mT
+    return _homogeneous(torch.cat([Rt, -(Rt @ T[..., :3, 3:4])], dim=-1))

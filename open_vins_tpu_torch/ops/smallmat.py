@@ -1,6 +1,6 @@
-"""Closed-form small-matrix algebra: 3×3 adjugate solve, upper-triangular
-3×3 inverse, symmetric 3×3 eigenvalues, and the unrolled-Cholesky quadratic
-form of the χ² gates.
+"""Closed-form small-matrix algebra: 3×3 adjugate solve and inverse,
+upper-triangular 3×3 inverse, symmetric 3×3 eigenvalues, and the
+unrolled-Cholesky quadratic form of the χ² gates.
 
 Counterpart of `open_vins_tpu/ops/smallmat.py`.  The same arithmetic in the
 same order, so that gates near their thresholds decide alike in both
@@ -36,6 +36,16 @@ def solve3(A, b, eps: float = 1e-12):
     x2 = (c21 * b1 + c22 * b2 + c23 * b3) / det
     x3 = (c31 * b1 + c32 * b2 + c33 * b3) / det
     return torch.stack([x1, x2, x3], dim=-1)
+
+
+def inv3(A, eps: float = 1e-12):
+    """Inverse of [..., 3, 3] A by the adjugate, with `solve3`'s determinant
+    clamp.  It stands in for the reference's `jnp.linalg.inv` (an LU
+    solve): the two agree to rounding, and this one neither raises on a
+    singular input nor waits on the device as `torch.linalg.inv` does."""
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    cols = [solve3(A, eye[j].expand(A.shape[:-1]), eps) for j in range(3)]
+    return torch.stack(cols, dim=-1)
 
 
 def chi2_quadform(S, b, floor: float = 1e-20):

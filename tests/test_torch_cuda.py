@@ -11,14 +11,17 @@ installed:
 import pytest
 import torch
 
+from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.ops import kernels
+from open_vins_tpu_torch.sim import simulator
 from torch_port_helpers import (check_r_factors, downdate_inputs, np_of,
                                 oracle_blocks, stack_blocks)
 
 # symmetric_downdate: the oracle shapes of tests/test_pallas_kernels.py, the
-# main paths' (D, support) and a 1434-wide state
+# main paths' (D, support), a 1434-wide state and the large map's (D,
+# support)
 DOWNDATE_SHAPES = [(96, 64), (171, 171), (256, 40), (130, 200), (120, 81),
-                   (270, 231), (1434, 231)]
+                   (270, 231), (1434, 231), (1434, 1395)]
 # householder_qr_blocks: the oracle [B, n] blocks (g = 3), then the [m, n]
 # stacks cut into row blocks (MSCKF-only and the operating point's)
 QR_CASES = [("oracle", 256, 128), ("oracle", 512, 128), ("oracle", 384, 256),
@@ -129,3 +132,32 @@ def test_cuda_qr_kernel_edge_shapes(g, B, n):
     ref = kernels.householder_qr_blocks_ref(A_d)
     assert (R - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     check_r_factors(np_of(R), A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cams,model", [(1, "radtan"), (2, "equi")])
+def test_cuda_staging_matches_cpu_staging(num_cams, model):
+    """The simulator on the card against the same draws on the CPU: ids and
+    masks equal except in a (frame, camera) with a map point within 1e-3 px
+    of the border or 1e-6 m of the depth gate; pixels within 1e-3 px where
+    both are valid, IMU samples and groundtruth within 1e-4 (accel)."""
+    _need_gpu()
+    params = simulator.SimParams(num_cams=num_cams, cam_model=model,
+                                 num_pts=50, map_size=256, duration=2.0,
+                                 start_offset=3.0)
+    draws = simulator.draw(params, 0)
+    sims = {d: simulator.build(params, draws=draws, device=d)
+            for d in ("cpu", "cuda")}
+    runs = {d: runner.stage_run(s, params) for d, s in sims.items()}
+    fc, fg = runs["cpu"].frames, runs["cuda"].frames
+    differ = ((np_of(fc.ids) != np_of(fg.ids)).any(-1)
+              | (np_of(fc.mask) != np_of(fg.mask)).any(-1))
+    for k, c in zip(*differ.nonzero()):
+        edge, depth = simulator.view_margins(sims["cpu"], params, k + 1, c)
+        assert bool(((edge < 1e-3) | (depth < 1e-6)).any()), (k, c)
+    same = torch.as_tensor(~differ[..., None]) & fc.mask & fg.mask.cpu()
+    assert (fc.uv[same] - fg.uv.cpu()[same]).abs().max() <= 1e-3
+    for a, b, tol in ((fc.win.w, fg.win.w, 1e-5), (fc.win.a, fg.win.a, 1e-4),
+                      (runs["cpu"].gt_p, runs["cuda"].gt_p, 1e-5),
+                      (runs["cpu"].gt_q, runs["cuda"].gt_q, 1e-5)):
+        assert (a - b.cpu()).abs().max() <= tol

@@ -18,6 +18,27 @@ the operating-point reference with ``--write-oppoint``).  The test below
 re-stages with JAX and requires the committed arrays to match; it is marked
 slow (about half a minute of JAX staging): run it with ``-m slow`` after any
 change to the fixture or to the simulator.
+
+Two more references hold JAX runs on streams that the port's own simulator
+stages from `simulator.draw(params, 0)` (the machine with the card stages
+them itself and holds its staging against the digest stored here):
+
+* `open_vins_tpu_torch/data/largemap_sim8_seed0_ref.npz`: bench.py's
+  large-map point (bench.py:389-402: 30 clones, 400 SLAM landmarks, 400
+  points per frame, a map of 4,096 points, 8 s on the sine trajectory,
+  D = 1434);
+* `open_vins_tpu_torch/data/v102_replay40_seed0_ref.npz`: the V1_02 corpus
+  replay of tests/test_corpus_replay.py:33-48 (40 s of the padded
+  trajectory, room-scale depths, the operating point in
+  ANCHORED_MSCKF_INVERSE_DEPTH) on the in-repo
+  `results/suite/truths/V1_02_medium.txt`.
+
+Each holds the JAX run's per-frame pose and counts, its RMSE, NEES and
+posyaw ATE, `meta` (the stream and the filter) and the port's CPU staging
+digest (`convert.staging_digest`).  Write them with
+``python tests/test_torch_fixture.py --write-sim-refs`` (JAX and the port
+on the CPU, a few minutes); `test_sim_refs_match_fresh_run` (slow)
+re-derives both.
 """
 
 from __future__ import annotations
@@ -46,6 +67,48 @@ OPPOINT_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
 OPPOINT_CFG = dict(max_clones=11, max_slam=50, num_cams=1,
                    max_msckf_in_update=40, integration="analytical",
                    newton_iters=14)
+
+LARGEMAP_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                            "largemap_sim8_seed0_ref.npz")
+V102_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                        "v102_replay40_seed0_ref.npz")
+# bench.py:389-402, on the sine trajectory (the reference's udel_gore.txt is
+# not in the repository, as bench.py:100-102 allows)
+LARGEMAP_META = {
+    "sim": dict(imu_rate=200.0, cam_rate=20.0, num_cams=1, num_pts=400,
+                map_size=4096, duration=8.0, sigma_pix=1.0,
+                start_offset=3.0),
+    "traj": None, "seed": SEED,
+    "cfg": dict(max_clones=30, max_slam=400, num_cams=1,
+                max_msckf_in_update=40, max_obs_per_feature=30,
+                integration="analytical", joint_update_form="qr"),
+    "max_tracks": 768,
+}
+V102_TRUTH = "results/suite/truths/V1_02_medium.txt"
+V102_T_RUN = 40.0
+
+
+def v102_meta():
+    """tests/test_corpus_replay.py:33-48 on the in-repo V1_02 groundtruth."""
+    from open_vins_tpu_torch.sim import trajectories
+
+    n_ctrl = int(round((3.0 + V102_T_RUN + 3.0) / 0.05))
+    _, valid = trajectories.load_trajectory_padded(
+        os.path.join(ROOT, V102_TRUTH), n_ctrl, device="cpu")
+    return {
+        "sim": dict(imu_rate=200.0, cam_rate=20.0, num_cams=1, num_pts=200,
+                    map_size=2048, duration=V102_T_RUN, sigma_pix=1.0,
+                    start_offset=3.0,
+                    map_duration=min(valid - 3.5, V102_T_RUN),
+                    min_view_depth=1.5, min_depth=3.0, max_depth=8.0),
+        "traj": {"file": V102_TRUTH, "n_ctrl": n_ctrl, "dt": 0.05},
+        "seed": SEED,
+        "cfg": dict(max_clones=11, max_slam=50, num_cams=1,
+                    max_msckf_in_update=40, integration="analytical",
+                    feat_rep_slam="ANCHORED_MSCKF_INVERSE_DEPTH"),
+        "max_tracks": 384,
+    }
+
 
 STAGED_KEYS = ("win_t", "win_w", "win_a", "t_new", "ids", "uv", "uvn", "mask",
                "gt_q", "gt_p", "gt_v", "bias_g0", "bias_a0", "cam_R_ItoC",
@@ -178,6 +241,112 @@ def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
         "finite": bool(np.isfinite(np.asarray(state.cov)).all())}))
 
 
+def jax_run_on_port_stream(meta):
+    """The port's CPU staging of `meta`'s stream, and JAX's run_filter on
+    it: (run, digest, reference arrays)."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.core.layout import FilterConfig
+    from open_vins_tpu.eval import metrics
+    from open_vins_tpu.models import manager, runner
+    from open_vins_tpu.models import triangulation as tri
+    from open_vins_tpu.models.propagator import ImuWindow
+    from open_vins_tpu.ops import lie
+    from open_vins_tpu_torch import convert
+
+    sim, _, run_t = convert.stage_stream(meta, "cpu")
+    a = convert.frames_to_numpy(run_t.frames)
+    frames = manager.FrameInput(
+        win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    gt = {k: getattr(run_t, k).numpy() for k in ("gt_q", "gt_p", "gt_v")}
+    run = runner.SimRun(frames=frames, **gt)
+    # run_filter reads only these fields of the simulator
+    sim_ns = types.SimpleNamespace(**{
+        k: getattr(sim, k).numpy() for k in ("bias_g_traj", "bias_a_traj",
+                                             "cam_R_ItoC", "cam_p_IinC",
+                                             "cam_intr")})
+    cfg = FilterConfig(**meta["cfg"])
+    state, outs = jax.jit(lambda r: runner.run_filter(
+        cfg, tri.TriangulationOptions(), sim_ns, None, r,
+        max_tracks=meta["max_tracks"]))(run)
+    qs, ps, covs6 = (np.asarray(outs[0]), np.asarray(outs[1]),
+                     np.asarray(outs[3]))
+    R = np.asarray(jax.vmap(lie.quat_2_rot)(jnp.asarray(
+        np.concatenate([qs, gt["gt_q"][1:]]))))
+    R_est, R_gt = R[:len(qs)], R[len(qs):]
+    gt_p = gt["gt_p"][1:]
+    rmse, nees = pose_metrics(
+        qs, ps, covs6, gt["gt_q"], gt["gt_p"],
+        lambda q: lie.quat_2_rot(jnp.asarray(q)),
+        lambda R: lie.log_so3(jnp.asarray(R)))
+    ori, pos = metrics.ate(ps, R_est.transpose(0, 2, 1), gt_p,
+                           R_gt.transpose(0, 2, 1), method="posyaw")
+    n = len(gt_p)
+    sl = slice(n // 4, n)
+    _, _, full = metrics.nees(ps[sl], R_est[sl], gt_p[sl], R_gt[sl],
+                              covs6[sl])
+    diag = outs[4]
+    ref = dict(
+        ref_q=qs, ref_p=ps, ref_n_msckf=np.asarray(diag.n_msckf),
+        ref_n_slam=np.asarray(diag.n_slam),
+        ref_n_slam_used=np.asarray(diag.n_slam_used),
+        ref_rmse=np.float64(rmse), ref_nees=np.float64(nees),
+        ref_ate_pos_m=np.float64(pos.rmse), ref_ate_ori_deg=np.float64(ori.rmse),
+        ref_nees_full=np.float64(full.mean),
+        ref_finite=np.bool_(np.isfinite(np.asarray(state.cov)).all()))
+    return run_t, convert.staging_digest(run_t), ref
+
+
+def write_sim_reference(path, meta):
+    run, digest, ref = jax_run_on_port_stream(meta)
+    np.savez_compressed(path, **ref,
+                        **{f"digest_{k}": v for k, v in digest.items()},
+                        meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({
+        "path": path, "bytes": os.path.getsize(path),
+        "frames": int(ref["ref_q"].shape[0]),
+        "state_dim": _cfg_dim(meta["cfg"]),
+        **{k: float(v) for k, v in ref.items() if v.ndim == 0},
+        "n_slam_mean": float(ref["ref_n_slam"].mean()),
+        "n_msckf_mean": float(ref["ref_n_msckf"].mean())}))
+
+
+def _cfg_dim(cfg):
+    from open_vins_tpu_torch.core.layout import FilterConfig
+
+    return FilterConfig(**cfg).state_dim
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("which", ["largemap", "v102"])
+def test_sim_refs_match_fresh_run(which):
+    """The committed reference equals a fresh run: the port's CPU staging
+    reproduces the digest (ids and masks exactly, floats to 1e-5), and
+    JAX's run on it the per-frame positions to 1e-4 m."""
+    from open_vins_tpu_torch import convert
+
+    path, meta = ((LARGEMAP_REF, LARGEMAP_META) if which == "largemap"
+                  else (V102_REF, v102_meta()))
+    ref = convert.load_reference(path)
+    assert ref["meta"] == json.loads(json.dumps(meta))
+    _, digest, fresh = jax_run_on_port_stream(meta)
+    for k, v in digest.items():
+        want = ref[f"digest_{k}"]
+        if v.dtype.kind in "biu":
+            np.testing.assert_array_equal(v, want, err_msg=k)
+        else:
+            np.testing.assert_allclose(v, want, rtol=0, atol=1e-5,
+                                       err_msg=k)
+    np.testing.assert_allclose(fresh["ref_p"], ref["ref_p"], rtol=0,
+                               atol=1e-4)
+    assert fresh["ref_finite"]
+
+
 @pytest.mark.slow
 def test_fixture_matches_fresh_staging():
     """The committed frames equal a fresh JAX staging (ids and masks exactly;
@@ -210,14 +379,18 @@ def test_fixture_matches_fresh_staging():
 
 
 if __name__ == "__main__":
-    if "--write" in sys.argv or "--write-oppoint" in sys.argv:
+    if {"--write", "--write-oppoint", "--write-sim-refs"} & set(sys.argv):
         import jax
 
-        # stage on the CPU, as the test re-stages it
+        # stage on the CPU, as the tests re-stage it
         jax.config.update("jax_platforms", "cpu")
         sys.path.insert(0, ROOT)
         if "--write" in sys.argv:
             write_fixture()
-        write_oppoint_reference()
+        if "--write" in sys.argv or "--write-oppoint" in sys.argv:
+            write_oppoint_reference()
+        if "--write-sim-refs" in sys.argv:
+            write_sim_reference(LARGEMAP_REF, LARGEMAP_META)
+            write_sim_reference(V102_REF, v102_meta())
     else:
         print(__doc__)

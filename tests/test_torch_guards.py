@@ -21,6 +21,7 @@ from open_vins_tpu_torch.core.state import init_state
 from open_vins_tpu_torch.models import feature_table as ft
 from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.models import triangulation as tri
+from open_vins_tpu_torch.sim import simulator, trajectories
 from torch_port_helpers import FIXTURE
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,6 +62,14 @@ def test_entry_points_default_to_cuda():
     run, calib, _ = convert.load_staged_run(FIXTURE, "cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         runner.run_filter(cfg, tri.TriangulationOptions(), calib, run)
+    params = simulator.SimParams(num_pts=4, map_size=8, duration=0.2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulator.build(params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        simulator.sine_trajectory(1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trajectories.load_trajectory_file(
+            ROOT / "results" / "suite" / "truths" / "V1_02_medium.txt")
 
 
 def _run_smoke(cwd, env):

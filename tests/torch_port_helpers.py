@@ -162,10 +162,11 @@ def fixture_problem() -> Problem:
                    ttri.TriangulationOptions())
 
 
-def slam_problem() -> Problem:
+def slam_problem(rep="GLOBAL_3D") -> Problem:
     """A small SLAM configuration on the staged frames of FIXTURE (no
-    simulator to compile): 5 clones, 4 landmark slots, <= 8 MSCKF features,
-    ACI², the joint "qr" update; landmarks enter from frame 5 on."""
+    simulator to compile): 5 clones, 4 landmark slots in representation
+    `rep`, <= 8 MSCKF features, ACI², the joint "qr" update; landmarks
+    enter from frame 5 on."""
     import jax.numpy as jnp
 
     from open_vins_tpu.core.layout import FilterConfig as JCfg
@@ -174,7 +175,7 @@ def slam_problem() -> Problem:
 
     pb = fixture_problem()
     kw = dict(max_clones=5, max_slam=4, num_cams=1, max_msckf_in_update=8,
-              integration="analytical")
+              integration="analytical", feat_rep_slam=rep)
     jc = JCfg(**kw)
     st = pb.state
     state = jman.initialize_from_gt(jc, st.q, st.p, st.v, st.bg, st.ba, 0.0,
@@ -229,3 +230,63 @@ def check_r_factors(R, A, atol=2e-3, rtol=2e-3):
         np.testing.assert_allclose(R[i].T @ R[i], Ai.T @ Ai, atol=atol,
                                    rtol=rtol)
         assert (np.tril(R[i], -1) == 0.0).all()
+
+
+def jax_sim_draws(params, seed):
+    """The JAX simulator's own random draws for `params` and `seed` (the
+    keys of `simulator.build`, `get_imu` and `get_cam`), as the port's
+    `SimDraws` of unit draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.sim import simulator
+    from open_vins_tpu_torch import convert
+
+    key = jax.random.PRNGKey(seed)
+    k_map, k_bg, k_ba, k_w, k_a, k_pix = jax.random.split(key, 6)
+    k1, k2, k3, k4 = jax.random.split(k_map, 4)
+    M, C, P = params.map_size, params.num_cams, params.num_pts
+    steps = jnp.arange(simulator.n_imu_steps(params) + 1)
+    n = steps.shape[0]
+
+    def per_step(k):
+        return jax.vmap(lambda s: jax.random.normal(
+            jax.random.fold_in(k, s), (3,)))(steps)
+
+    def per_frame(f):
+        kf = jax.random.fold_in(k_pix, f)
+        return jax.vmap(lambda c: jax.random.normal(
+            jax.random.fold_in(kf, c), (P, 2)))(jnp.arange(C))
+
+    arrays = dict(
+        map_t=jax.random.uniform(k1, (M,)),
+        map_cam=jax.random.randint(k2, (M,), 0, C),
+        map_uv=jax.random.uniform(k3, (M, 2)),
+        map_depth=jax.random.uniform(k4, (M,)),
+        bias_g_inc=jax.random.normal(k_bg, (n, 3)),
+        bias_a_inc=jax.random.normal(k_ba, (n, 3)),
+        imu_w=per_step(k_w), imu_a=per_step(k_a),
+        pix=jax.vmap(per_frame)(jnp.arange(simulator.n_cam_frames(params))))
+    return convert.sim_draws_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()})
+
+
+def jax_calib_draws(num_cams, seed):
+    """`simulator.perturb_calib`'s JAX draws as the port's `CalibDraws`."""
+    import jax
+
+    from open_vins_tpu_torch import convert
+
+    ks = jax.random.split(jax.random.PRNGKey(seed), 8)
+    N = num_cams
+    arrays = dict(
+        dt=jax.random.normal(ks[0], ()), intr=jax.random.normal(ks[1], (N, 8)),
+        rot=jax.random.normal(ks[2], (N, 3)),
+        pos=jax.random.normal(ks[3], (N, 3)),
+        imu_dw=jax.random.normal(ks[4], (6,)),
+        imu_da=jax.random.normal(ks[5], (6,)),
+        gyro_rot=jax.random.normal(ks[6], (3,)),
+        acc_rot=jax.random.normal(jax.random.fold_in(ks[6], 1), (3,)),
+        imu_tg=jax.random.normal(ks[7], (9,)))
+    return convert.calib_draws_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()})

@@ -1,10 +1,9 @@
 """Where a frame of the PyTorch port's main path spends its time on the GPU.
 
-    python tools/torch_main_path_profile.py [--config msckf|oppoint]
-                                            [--warm 40] [--frames 40]
+    python tools/torch_main_path_profile.py
+        [--config msckf|oppoint|largemap|replay] [--warm 40] [--frames 40]
 
-Steps a closed loop (`models/manager.step_frame` over the staged run of
-`open_vins_tpu_torch/data/msckf_sim20_seed0.npz`) through `--warm` frames,
+Steps a closed loop (`models/manager.step_frame`) through `--warm` frames,
 then traces the next `--frames` frames with `torch.profiler` and prints one
 JSON line: host wall time per frame, GPU kernel launches and busy time per
 frame, the GPU's idle share of the wall time, the hand-written kernels'
@@ -13,10 +12,15 @@ launches, the host time spent in delayed init's one read of a device flag
 plus the few operations that form the flag), and the kernels that take the
 most device time.  The host time per frame is taken on a second, untraced
 window of as many frames.
-`msckf` is the MSCKF-only configuration of the staged run; `oppoint` is the
-bench's operating point (SLAM, ACI², the joint "qr" update) of
-`open_vins_tpu_torch/data/oppoint_sim20_seed0_ref.npz`.  Needs a CUDA
-device; the card's name and power limit are printed with the numbers.
+`msckf` is the MSCKF-only configuration of the staged run
+`open_vins_tpu_torch/data/msckf_sim20_seed0.npz`; `oppoint` is the bench's
+operating point (SLAM, ACI², the joint "qr" update) of
+`open_vins_tpu_torch/data/oppoint_sim20_seed0_ref.npz` on the same frames;
+`largemap` (bench.py's large map, D = 1434, 159 frames) and `replay` (the
+V1_02 replay in ANCHORED_MSCKF_INVERSE_DEPTH, 799 frames) are staged on the
+card by the port's simulator from the configuration of
+`largemap_sim8_seed0_ref.npz` and `v102_replay40_seed0_ref.npz`.  Needs a
+CUDA device; the card's name and power limit are printed with the numbers.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ from open_vins_tpu_torch.ops import kernels, lie  # noqa: E402
 DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
 OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
+STAGED_REFS = {"largemap": os.path.join(DATA, "largemap_sim8_seed0_ref.npz"),
+               "replay": os.path.join(DATA, "v102_replay40_seed0_ref.npz")}
 
 
 def _union_us(intervals):
@@ -62,13 +68,18 @@ def _union_us(intervals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("msckf", "oppoint"),
-                    default="msckf")
+    ap.add_argument("--config", default="msckf",
+                    choices=("msckf", "oppoint", "largemap", "replay"))
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--frames", type=int, default=40)
     args = ap.parse_args()
 
-    run, calib, ref = convert.load_staged_run(FIXTURE, "cuda")
+    if args.config in STAGED_REFS:
+        ref = convert.load_reference(STAGED_REFS[args.config])
+        sim, _, run = convert.stage_stream(ref["meta"], "cuda")
+        calib = runner.sim_calib(sim)
+    else:
+        run, calib, ref = convert.load_staged_run(FIXTURE, "cuda")
     if args.config == "oppoint":
         ref = convert.load_reference(OPPOINT_REF)
     cfg = FilterConfig(**ref["meta"]["cfg"])
@@ -139,7 +150,8 @@ def main():
                      .float().mean())
 
     print(json.dumps({
-        "config": args.config, "device": torch.cuda.get_device_name(0),
+        "config": args.config, "state_dim": cfg.state_dim,
+        "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "frames": n, "first_frame": args.warm,
         "n_msckf_mean": mean("n_msckf"), "n_slam_mean": mean("n_slam"),
         "n_slam_used_mean": mean("n_slam_used"),
