@@ -48,7 +48,27 @@ so the exit code is not 0):
    in-repo `results/suite/truths/V1_02_medium.txt`, the operating point in
    ANCHORED_MSCKF_INVERSE_DEPTH) over its 799 frames, then
    `runner.run_filter_from` from the groundtruth state at frame 40 over the
-   first 200 frames.
+   first 200 frames;
+10. bench.py's 8-seed ensemble (bench.py:221-282): the operating point on
+   8 streams, seeds 0..7, staged on the card by `runner.stage_ensemble`
+   (each stream held against its digest in
+   `open_vins_tpu_torch/data/ensemble8_sim20_ref.npz`, as phase 7 holds
+   one), then `runner.run_ensemble` over all 399 frames after a 40-frame
+   warm-up: every frame is one batched step (`manager.step_frame` under
+   `torch.func.vmap`) whose covariance downdate is one launch of the
+   batched kernel for all 8 streams.  It prints the aggregate frames/s
+   (8 × 399 / seconds), each stream's RMSE and NEES and the seed-mean NEES,
+   and must pass: every covariance finite, median RMSE < 0.05 m
+   (bench.py:266-267), each stream within 0.01 m RMSE of its JAX run, the
+   seed-mean NEES in 0.2-30 and within 25 % of the JAX seed-mean, and 399
+   downdate launches in 399 frames.  At frame 30 the batch is stepped once
+   more from its state and each stream held against its own single-stream
+   step (covariance within 1e-5·‖P‖∞, 5e-5 in a step that initializes a
+   landmark).  Phase 3 also checks the batched downdate (vmapped, one
+   launch per batch) at [8, 270, 231] and [8, 120, 81] (timed beside
+   `torch.baddbmm`), batch 1, batch 3 at D = 33, m = 0, batch 32 at
+   (100, 7) and a broadcast P, and the QR kernel's vmap rule on 8 streams'
+   stacked blocks.
 
 Each closed loop sets the kernels' launch counts to 0 just before its timed
 run and reads them just after, and must launch `symmetric_downdate` at
@@ -75,6 +95,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
 OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
+ENSEMBLE_REF = os.path.join(DATA, "ensemble8_sim20_ref.npz")
 LARGEMAP_REF = os.path.join(DATA, "largemap_sim8_seed0_ref.npz")
 V102_REF = os.path.join(DATA, "v102_replay40_seed0_ref.npz")
 
@@ -86,6 +107,12 @@ DOWNDATE_SHAPES = [(96, 64), (171, 171), (256, 40), (130, 200), (120, 81),
                    (270, 231), (1434, 231), (1434, 1395)]
 DOWNDATE_EDGE_SHAPES = [(1, 5), (1, 0), (33, 20), (33, 0)]  # checked only
 OPPOINT_SHAPE = (270, 231)  # D and support width at the operating point
+# the batched downdate (n streams, D, m): the ensemble's and the MSCKF-only
+# widths at 8 streams (timed), then edge shapes (checked only)
+BATCHED_SHAPES = [(8, 270, 231), (8, 120, 81)]
+BATCHED_EDGE_SHAPES = [(1, 270, 231), (3, 33, 20), (3, 33, 0), (8, 270, 0),
+                       (32, 100, 7)]
+ENSEMBLE_SHAPE = (8, 270, 231)
 LARGEMAP_SHAPE = (1434, 1395)  # the large map's D and support width
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
 # blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32)
@@ -112,6 +139,9 @@ REPLAY_ATE_POS_M, REPLAY_ATE_ORI_DEG = 0.08, 1.5
 REPLAY_NEES = (0.5, 30.0)
 REPLAY_MIN_SLAM = 10.0
 RUN_FROM_K0, RUN_FROM_FRAMES, RUN_FROM_RMSE_M = 40, 200, 0.1
+ENSEMBLE_WARM_FRAMES = 40
+ENSEMBLE_NEES_SPREAD = 0.25  # seed-mean NEES against the JAX seed-mean
+ENSEMBLE_CHECK_FRAME = 30  # window full, landmarks in use
 
 
 def emit(obj):
@@ -225,12 +255,13 @@ def _bound(n_bytes, n_ops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def downdate_bound_ms(D, m, same):
+def downdate_bound_ms(D, m, same, n=1):
     """Inputs read once (K = PHt counts once), output written once.  With
     K = PHt the product K·Kᵀ is symmetric and only its D(D+1)/2 upper
-    entries are needed: D·(D+1)·m f32 operations; else 2·D²·m."""
-    return _bound(4 * (D * D + (1 if same else 2) * D * m + D * D),
-                  (D * (D + 1.0) if same else 2.0 * D * D) * m)
+    entries are needed: D·(D+1)·m f32 operations; else 2·D²·m.  A batch of
+    n problems does n times the work."""
+    return _bound(4 * n * (D * D + (1 if same else 2) * D * m + D * D),
+                  n * (D * (D + 1.0) if same else 2.0 * D * D) * m)
 
 
 def qr_bound_ms(g, B, n):
@@ -277,6 +308,82 @@ def phase_downdate():
             emit(row)
             rows[(D, m, same)] = row
     emit({"phase": "kernel_downdate", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def _check_downdate(row, out, ref, P, launched):
+    """The batched downdate's checks, into `row`: each matrix within
+    1e-5·max(1, ‖P‖∞) of the plain version, exactly symmetric, finite, one
+    launch for the whole batch."""
+    import torch
+
+    row.update(max_abs_err=(out - ref).abs().max().item() if out.numel()
+               else 0.0,
+               tol=1e-5 * max(1.0, P.abs().sum(dim=-1).max().item()),
+               exactly_symmetric=bool(torch.equal(out, out.mT)),
+               launches_per_call=launched)
+    if not (row["max_abs_err"] <= row["tol"] and row["exactly_symmetric"]
+            and bool(torch.isfinite(out).all()) and launched == 1):
+        emit(row)
+        raise AssertionError(f"batched symmetric_downdate disagrees: {row}")
+
+
+def phase_downdate_batched():
+    """symmetric_downdate under torch.func.vmap (the ensemble's batched
+    step): one launch per batch, against the plain version at every shape,
+    timed at BATCHED_SHAPES beside `torch.baddbmm(P, K, PHtᵀ, alpha=-1)`."""
+    import torch
+
+    from open_vins_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    one = torch.func.vmap(lambda p, k: kernels.symmetric_downdate(p, k, k))
+    two = torch.func.vmap(kernels.symmetric_downdate)
+    rows = {}
+    for n, D, m in BATCHED_SHAPES + BATCHED_EDGE_SHAPES:
+        for same in (True, False):
+            A = torch.randn(n, D, D, device="cuda", generator=gen)
+            P = (A + A.mT) / 2
+            K = torch.randn(n, D, m, device="cuda", generator=gen) / m ** 0.5
+            PHt = K if same else (torch.randn(n, D, m, device="cuda",
+                                              generator=gen) / m ** 0.5)
+
+            def fn(P=P, K=K, PHt=PHt, same=same):
+                return one(P, K) if same else two(P, K, PHt)
+
+            before = kernels.symmetric_downdate.launches
+            out = fn()
+            torch.cuda.synchronize()
+            row = {"phase": "kernel", "name": "symmetric_downdate_batched",
+                   "n": n, "D": D, "m": m, "K_is_PHt": same}
+            _check_downdate(row, out,
+                            kernels.symmetric_downdate_ref(P, K, PHt), P,
+                            kernels.symmetric_downdate.launches - before)
+            if (n, D, m) in BATCHED_SHAPES:
+                row["bound_ms"], row["bound_by"] = downdate_bound_ms(
+                    D, m, same, n)
+                _times(row, fn,
+                       lambda P=P, K=K, PHt=PHt: torch.baddbmm(
+                           P, K, PHt.mT, alpha=-1),
+                       lambda P=P, K=K, PHt=PHt:
+                       kernels.symmetric_downdate_ref(P, K, PHt))
+                rows[(n, D, m, same)] = row
+            emit(row)
+    # one P for every stream (an unbatched operand broadcast to the batch)
+    P = torch.randn(270, 270, device="cuda", generator=gen)
+    P = (P + P.T) / 2
+    K = torch.randn(8, 270, 231, device="cuda", generator=gen) / 231 ** 0.5
+    before = kernels.symmetric_downdate.launches
+    out = torch.func.vmap(lambda k: kernels.symmetric_downdate(P, k, k))(K)
+    torch.cuda.synchronize()
+    row = {"phase": "kernel", "name": "symmetric_downdate_batched",
+           "n": 8, "D": 270, "m": 231, "K_is_PHt": True, "P": "broadcast"}
+    _check_downdate(row, out, kernels.symmetric_downdate_ref(P, K, K), P,
+                    kernels.symmetric_downdate.launches - before)
+    emit(row)
+    emit({"phase": "kernel_downdate_batched",
+          "seconds": time.perf_counter() - t0})
     return rows
 
 
@@ -343,20 +450,43 @@ def phase_qr():
                    n_call=20, n_plain=5)
             rows[(label, B, n)] = row
         emit(row)
+    # the vmap rule: 8 streams' stacked blocks in one launch, against one
+    # launch per stream
+    A = torch.stack([_qr_input("oppoint_stack", 1174, 544, 271, gen)
+                     for _ in range(8)])
+    before = kernels.householder_qr_blocks.launches
+    R = torch.func.vmap(kernels.householder_qr_blocks)(A)
+    torch.cuda.synchronize()
+    launched = kernels.householder_qr_blocks.launches - before
+    per = torch.stack([kernels.householder_qr_blocks(a) for a in A])
+    row = {"phase": "kernel", "name": "householder_qr_blocks",
+           "input": "vmap_8_streams", "shape": list(A.shape),
+           "launches_per_call": launched,
+           "max_abs_err_to_per_stream": (R - per).abs().max().item(),
+           "tol": QR_ELEMENT_TOL * per.abs().max().item(),
+           "bit_equal": bool(torch.equal(R, per))}
+    emit(row)
+    if not (launched == 1 and row["max_abs_err_to_per_stream"] <= row["tol"]):
+        raise AssertionError("householder_qr_blocks' vmap rule disagrees "
+                             "with per-stream launches")
     emit({"phase": "kernel_qr", "seconds": time.perf_counter() - t0})
     return rows
 
 
-def _prefix(run, n):
-    """The first n frames of a staged run."""
+def _prefix(run, n, streams=False):
+    """The first n frames of a staged run (of every stream of a run stacked
+    over streams)."""
+    import torch.utils._pytree as pytree
+
     from open_vins_tpu_torch.models import runner
 
-    frames = run.frames
-    f = type(frames)(**{k: (type(v)(**{a: b[:n] for a, b in v.items()})
-                            if k == "win" else v[:n])
-                        for k, v in frames.items()})
-    return runner.SimRun(frames=f, gt_q=run.gt_q[:n + 1],
-                         gt_p=run.gt_p[:n + 1], gt_v=run.gt_v[:n + 1])
+    def cut(a, m):
+        return a[:, :m] if streams else a[:m]
+
+    return runner.SimRun(frames=pytree.tree_map(lambda a: cut(a, n),
+                                                run.frames),
+                         gt_q=cut(run.gt_q, n + 1), gt_p=cut(run.gt_p, n + 1),
+                         gt_v=cut(run.gt_v, n + 1))
 
 
 def _drive(name, cfg, run, calib, ref, max_tracks):
@@ -558,62 +688,80 @@ def phase_oppoint_path(run, calib):
     return row
 
 
+def _check_staging(name, seconds, params, run, want, sim_of):
+    """Hold one stream staged on the card against the digest `want` of the
+    port's CPU staging of the same draws: ids and masks equal but for at
+    most STAGING_FLIPS_MAX entries, each explained by a map point at the
+    image border or the depth gate (`sim_of()` gives the stream's
+    simulator, for those margins), pixels within STAGING_UV_TOL_PX,
+    groundtruth within STAGING_GT_TOL."""
+    import numpy as np
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.sim import simulator
+
+    dig = convert.staging_digest(run)
+    flips, unexplained, uv_err = 0, [], 0.0
+    for i, k in enumerate(want["frames"]):
+        for c in range(params.num_cams):
+            got_ids = set(dig["ids"][i, c][dig["mask"][i, c]].tolist())
+            ref_ids = set(want["ids"][i, c][want["mask"][i, c]].tolist())
+            diff = sorted(got_ids ^ ref_ids)
+            same = ((dig["ids"][i, c] == want["ids"][i, c])
+                    & dig["mask"][i, c] & want["mask"][i, c])
+            uv_err = max(uv_err, float(np.abs(
+                dig["uv"][i, c][same] - want["uv"][i, c][same]).max(
+                    initial=0.0)))
+            if not diff:
+                continue
+            flips += len(diff)
+            edge, depth = simulator.view_margins(sim_of(), params, int(k) + 1,
+                                                 c)
+            at_gate = (edge[diff] < GATE_NEAR_PX) | (depth[diff]
+                                                     < GATE_NEAR_M)
+            if not bool(at_gate.any()):
+                unexplained.append((int(k), c, diff))
+    row = {"phase": "sim_staging", "stream": name, "seconds": seconds,
+           "frames": int(run.frames.t_new.shape[0]),
+           "map_size": params.map_size, "num_pts": params.num_pts,
+           "id_flips": flips, "unexplained_flips": unexplained,
+           "uv_max_abs_err_px": uv_err,
+           "gt_p_max_abs_err_m": float(np.abs(
+               dig["gt_p"] - want["gt_p"]).max()),
+           "gt_q_max_abs_err": float(np.abs(
+               dig["gt_q"] - want["gt_q"]).max())}
+    emit(row)
+    ok = (flips <= STAGING_FLIPS_MAX and not unexplained
+          and uv_err <= STAGING_UV_TOL_PX
+          and row["gt_p_max_abs_err_m"] <= STAGING_GT_TOL
+          and row["gt_q_max_abs_err"] <= STAGING_GT_TOL)
+    if not ok:
+        raise AssertionError(f"sim_staging {name}: the card's staging "
+                             "disagrees with the CPU staging")
+
+
+def _digest_of(ref, b=None):
+    """The staging digest in a reference (stream b of an ensemble's)."""
+    return {k[len("digest_"):]: (v if b is None else v[b])
+            for k, v in ref.items() if k.startswith("digest_")}
+
+
 def phase_sim_staging(refs):
     """Stage each stream on the card and hold it against the digest of the
     port's CPU staging of the same draws.  Returns {name: (sim, params,
     run, calib)}."""
-    import numpy as np
     import torch
 
     from open_vins_tpu_torch import convert
     from open_vins_tpu_torch.models import runner
-    from open_vins_tpu_torch.sim import simulator
 
     staged = {}
     for name, ref in refs.items():
         t0 = time.perf_counter()
         sim, params, run = convert.stage_stream(ref["meta"], "cuda")
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        dig = convert.staging_digest(run)
-        want = {k: ref[f"digest_{k}"] for k in dig}
-        flips, unexplained, uv_err = 0, [], 0.0
-        for i, k in enumerate(want["frames"]):
-            for c in range(params.num_cams):
-                got_ids = set(dig["ids"][i, c][dig["mask"][i, c]].tolist())
-                ref_ids = set(want["ids"][i, c][want["mask"][i, c]].tolist())
-                diff = sorted(got_ids ^ ref_ids)
-                same = ((dig["ids"][i, c] == want["ids"][i, c])
-                        & dig["mask"][i, c] & want["mask"][i, c])
-                uv_err = max(uv_err, float(np.abs(
-                    dig["uv"][i, c][same] - want["uv"][i, c][same]).max(
-                        initial=0.0)))
-                if not diff:
-                    continue
-                flips += len(diff)
-                edge, depth = simulator.view_margins(sim, params, int(k) + 1,
-                                                     c)
-                at_gate = (edge[diff] < GATE_NEAR_PX) | (depth[diff]
-                                                         < GATE_NEAR_M)
-                if not bool(at_gate.any()):
-                    unexplained.append((int(k), c, diff))
-        row = {"phase": "sim_staging", "stream": name, "seconds": seconds,
-               "frames": int(run.frames.t_new.shape[0]),
-               "map_size": params.map_size, "num_pts": params.num_pts,
-               "id_flips": flips, "unexplained_flips": unexplained,
-               "uv_max_abs_err_px": uv_err,
-               "gt_p_max_abs_err_m": float(np.abs(
-                   dig["gt_p"] - want["gt_p"]).max()),
-               "gt_q_max_abs_err": float(np.abs(
-                   dig["gt_q"] - want["gt_q"]).max())}
-        emit(row)
-        ok = (flips <= STAGING_FLIPS_MAX and not unexplained
-              and uv_err <= STAGING_UV_TOL_PX
-              and row["gt_p_max_abs_err_m"] <= STAGING_GT_TOL
-              and row["gt_q_max_abs_err"] <= STAGING_GT_TOL)
-        if not ok:
-            raise AssertionError(f"sim_staging {name}: the card's staging "
-                                 "disagrees with the CPU staging")
+        _check_staging(name, time.perf_counter() - t0, params, run,
+                       _digest_of(ref), lambda sim=sim: sim)
         staged[name] = (sim, params, run, runner.sim_calib(sim))
     return staged
 
@@ -707,6 +855,121 @@ def phase_v102_replay(staged, ref):
     return row
 
 
+def _ensemble_step_check(cfg, opts, calibs, runs, max_tracks):
+    """The batch stepped to ENSEMBLE_CHECK_FRAME, then once more from its
+    state; each stream against its own `step_frame` from the same state:
+    covariance within 1e-5·‖P‖∞ (5e-5 in a step that initializes a
+    landmark, the repo's SLAM rule), the window full."""
+    from open_vins_tpu_torch.models import manager, runner
+
+    state, table = runner.ensemble_start(cfg, calibs, runs, max_tracks)
+    step = runner.ensemble_step(cfg, opts)
+    for k in range(ENSEMBLE_CHECK_FRAME):
+        state, table, _ = step(state, table, runner.ensemble_frame(runs, k))
+    frame = runner.ensemble_frame(runs, ENSEMBLE_CHECK_FRAME)
+    post, _, _ = step(state, table, frame)
+    streams = []
+    for b in range(runs.gt_p.shape[0]):
+        pre = runner.record_at(state, b)
+        one, _, _ = manager.step_frame(pre, runner.record_at(table, b), cfg,
+                                       opts, runner.record_at(frame, b))
+        init = bool((one.slam_valid & ~pre.slam_valid).any())
+        norm = one.cov.abs().sum(dim=1).max().item()
+        streams.append({
+            "stream": b, "window_full": int(pre.n_clones) == cfg.max_clones,
+            "init_step": init, "tol": 5e-5 if init else 1e-5,
+            "cov_gap_rel_norm_inf":
+                (post.cov[b] - one.cov).abs().max().item() / norm,
+            "p_gap_m": (post.p[b] - one.p).abs().max().item(),
+            "n_slam": int(one.slam_valid.sum())})
+    emit({"phase": "ensemble8_step_check", "frame": ENSEMBLE_CHECK_FRAME,
+          "streams": streams})
+    for r in streams:
+        if not (r["window_full"] and r["cov_gap_rel_norm_inf"] <= r["tol"]):
+            raise AssertionError(f"ensemble step check failed: {r}")
+
+
+def phase_ensemble8(ref):
+    """bench.py's 8-seed ensemble through `runner.run_ensemble` (the
+    module docstring's phase 10)."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.ops import kernels
+    from open_vins_tpu_torch.sim import simulator
+
+    meta = ref["meta"]
+    params = simulator.SimParams(**meta["sim"])
+    cfg, opts = FilterConfig(**meta["cfg"]), tri.TriangulationOptions()
+    seeds, max_tracks = meta["seeds"], meta["max_tracks"]
+    t0 = time.perf_counter()
+    calibs, runs = runner.stage_ensemble(params, seeds, "cuda")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    for b, seed in enumerate(seeds):
+        _check_staging(
+            f"ensemble8_seed{seed}", stage_s / len(seeds), params,
+            runner.record_at(runs, b), _digest_of(ref, b),
+            lambda seed=seed: simulator.build(
+                params, seed=seed, draws=simulator.draw(params, seed),
+                device="cuda"))
+
+    t0 = time.perf_counter()
+    runner.run_ensemble(cfg, opts, calibs,
+                        _prefix(runs, ENSEMBLE_WARM_FRAMES, streams=True),
+                        max_tracks=max_tracks, device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    B, n_frames = len(seeds), runs.frames.t_new.shape[1]
+    kernels.symmetric_downdate.launches = 0
+    kernels.householder_qr_blocks.launches = 0
+    t0 = time.perf_counter()
+    state, outs = runner.run_ensemble(cfg, opts, calibs, runs,
+                                      max_tracks=max_tracks, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
+                "householder_qr_blocks":
+                    kernels.householder_qr_blocks.launches}
+    m = runner.ensemble_metrics(outs, runs)
+    diag = outs[4]
+    jax_rmse, jax_nees = np.asarray(ref["ref_rmse"]), np.asarray(
+        ref["ref_nees"])
+    row = {"phase": "main_path_ensemble8", "streams": B, "seeds": seeds,
+           "frames": n_frames, "state_dim": cfg.state_dim,
+           "seconds": seconds, "warm_up_seconds": warm_s,
+           "agg_frames_per_s": B * n_frames / seconds,
+           "rmse_m": m["rmse"].tolist(), "rmse_median_m": m["rmse_median"],
+           "nees": m["nees"].tolist(),
+           "nees_seed_mean": m["nees_seed_mean"],
+           "nees_seed_std": m["nees_seed_std"],
+           "jax_rmse_m": jax_rmse.tolist(), "jax_nees": jax_nees.tolist(),
+           "jax_nees_seed_mean": float(ref["ref_nees_seed_mean"]),
+           "jax_nees_seed_std": float(ref["ref_nees_seed_std"]),
+           "max_rmse_gap_to_jax_m": float(np.abs(m["rmse"] - jax_rmse).max()),
+           "n_slam_mean": diag.n_slam.float().mean(dim=1).tolist(),
+           "jax_n_slam_mean": ref["ref_n_slam_mean"].tolist(),
+           "n_msckf_mean": diag.n_msckf.float().mean(dim=1).tolist(),
+           "finite": [bool(torch.isfinite(c).all()) for c in state.cov],
+           "launches": launches}
+    emit(row)
+    jax_mean = row["jax_nees_seed_mean"]
+    ok = (all(row["finite"]) and m["rmse_median"] < RMSE_GATE_M
+          and row["max_rmse_gap_to_jax_m"] <= REF_RMSE_SPREAD_M
+          and 0.2 < m["nees_seed_mean"] < 30.0
+          and abs(m["nees_seed_mean"] - jax_mean)
+          <= ENSEMBLE_NEES_SPREAD * jax_mean
+          and launches["symmetric_downdate"] == n_frames
+          and min(row["n_slam_mean"]) > 0)
+    if not ok:
+        raise AssertionError("main_path_ensemble8: a gate failed")
+    _ensemble_step_check(cfg, opts, calibs, runs, max_tracks)
+    return row
+
+
 def _kernel_numbers(row):
     """A kernel's numbers for the kernels line: `ms` and `library_ms` are
     device times (`device_ms`); the per-call times stand beside them."""
@@ -728,6 +991,7 @@ def main():
     smi = phase_environment()
     phase_build()
     dd_rows = phase_downdate()
+    bd_rows = phase_downdate_batched()
     qr_rows = phase_qr()
     run, calib, ref = convert.load_staged_run(FIXTURE, device="cuda")
     phase_msckf_path(run, calib, ref)
@@ -739,6 +1003,7 @@ def main():
     staged = phase_sim_staging(refs)
     lm_row = phase_largemap(staged["largemap"], refs["largemap"])
     rp_row = phase_v102_replay(staged["v102_replay"], refs["v102_replay"])
+    en_row = phase_ensemble8(convert.load_reference(ENSEMBLE_REF))
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
@@ -751,7 +1016,12 @@ def main():
         "launches": op_row["launches"]["symmetric_downdate"],
         "launches_largemap": lm_row["launches"]["symmetric_downdate"],
         "launches_v102_replay": rp_row["launches"]["symmetric_downdate"],
+        "launches_ensemble8": en_row["launches"]["symmetric_downdate"],
         **_kernel_numbers(dd),
+        "batched": [{"shape": list(k[:3]), "K_is_PHt": True,
+                     "library": "torch.baddbmm",
+                     **_kernel_numbers(bd_rows[k])}
+                    for k in (ENSEMBLE_SHAPE + (True,), (8, 120, 81, True))],
     }, {
         "name": "householder_qr_blocks", "route": "cuda",
         "source": "open_vins_tpu_torch/ops/csrc/householder_qr_blocks.cu",

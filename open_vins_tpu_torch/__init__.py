@@ -5,16 +5,23 @@ A second package beside the JAX reference `open_vins_tpu/`.  It imports
 Entry points take `device=None`, which means the CUDA device; the tests pass
 `device="cpu"` explicitly and nothing falls back to the CPU on its own.
 
-The port runs the closed-loop filter on staged frames:
-`models.runner.run_filter` calls `models.manager.step_frame` once per camera
-frame.  It covers OpenVINS's MSCKF-only mode (`max_slam=0`) and the bench's
-operating point: SLAM landmarks in the GLOBAL_3D representation with the
-joint batched delayed init, the joint "qr" vision update, and the rk4,
-discrete or analytical (ACI²) integrators.  Two hand-written Hopper kernels
-(see `ops/kernels.py`): every EKF update's covariance downdate runs
-`ops/csrc/symmetric_downdate.cu`, and the Householder TSQR compression
-(`models.update_helper.compress_system`) runs its row blocks through
-`ops/csrc/householder_qr_blocks.cu`.
+The port stages its own sensor streams (`sim/`: the SE(3) B-spline,
+trajectory files and the seeded simulator, whose random numbers come from
+numpy's PCG64 so that one seed stages the same stream on the CPU and the
+card) and runs the closed-loop filter on them: `models.runner.run_filter`
+calls `models.manager.step_frame` once per camera frame, and
+`run_filter_from` starts from a given state.  It covers OpenVINS's
+MSCKF-only mode (`max_slam=0`) and the bench's operating point: SLAM
+landmarks in GLOBAL_3D or one of the anchored and inverse-depth
+representations (`models.landmark_rep`, with `change_anchors`), the joint
+batched delayed init, the joint "qr" vision update, and the rk4, discrete
+or analytical (ACI²) integrators.  `runner.run_ensemble` runs bench.py's
+seed ensemble: B streams stepped as one batched step, `step_frame` under
+`torch.func.vmap`.  Two hand-written Hopper kernels (see `ops/kernels.py`,
+custom ops with vmap rules, so a batched call is one launch): every EKF
+update's covariance downdate runs `ops/csrc/symmetric_downdate.cu`, and the
+Householder TSQR compression (`models.update_helper.compress_system`) runs
+its row blocks through `ops/csrc/householder_qr_blocks.cu`.
 """
 
 import torch as _torch

@@ -74,6 +74,16 @@ def frames_to_numpy(frames: FrameInput) -> dict:
     return out
 
 
+def run_to_numpy(run: SimRun) -> dict:
+    """A staged run's frames (FRAME_KEYS) and groundtruth (`gt_q`, `gt_p`,
+    `gt_v`) as numpy arrays; a run stacked over streams keeps its leading
+    stream axis (what the JAX package's vmapped `run_filter` takes)."""
+    out = frames_to_numpy(run.frames)
+    out.update({k: getattr(run, k).cpu().numpy()
+                for k in ("gt_q", "gt_p", "gt_v")})
+    return out
+
+
 def sim_draws_from_numpy(arrays) -> SimDraws:
     """A simulator's unit draws (SimDraws field names) as CPU tensors:
     floats as float32, the map's camera indices as int32."""
@@ -101,14 +111,17 @@ def calib_draws_to_numpy(draws: CalibDraws) -> dict:
 def load_reference(path) -> dict:
     """The JAX run stored in an `.npz` (a staged-run file or a `*_ref.npz`
     beside one): its per-frame `ref_*` arrays, `ref_rmse`/`ref_nees` as
-    floats, `meta` (the configuration, decoded from JSON) and, where the
-    file has one, the staging digest as `digest_*` (`staging_digest`)."""
+    floats (an ensemble's file holds one per stream: then arrays [B]),
+    `meta` (the configuration, decoded from JSON) and, where the file has
+    one, the staging digest as `digest_*` (`staging_digest`; an ensemble's
+    file stacks one per stream, `ensemble_digest`)."""
     with np.load(path) as z:
         ref = {k: z[k] for k in z.files
                if k.startswith("ref_") or k.startswith("digest_")}
         ref["meta"] = json.loads(str(z["meta"]))
-    ref["ref_rmse"] = float(ref["ref_rmse"])
-    ref["ref_nees"] = float(ref["ref_nees"])
+    for k in ("ref_rmse", "ref_nees"):
+        if ref[k].ndim == 0:
+            ref[k] = float(ref[k])
     return ref
 
 
@@ -160,3 +173,11 @@ def staging_digest(run: SimRun) -> dict:
            "ids": run.frames.ids[k], "mask": run.frames.mask[k],
            "uv": run.frames.uv[k]}
     return {key: v.detach().cpu().numpy() for key, v in out.items()}
+
+
+def ensemble_digest(runs: SimRun) -> dict:
+    """`staging_digest` of every stream of a run stacked over streams, each
+    array stacked along a leading stream axis."""
+    per = [staging_digest(runner.record_at(runs, b))
+           for b in range(runs.gt_p.shape[0])]
+    return {k: np.stack([d[k] for d in per]) for k in per[0]}

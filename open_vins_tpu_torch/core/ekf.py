@@ -153,13 +153,14 @@ def active_mask(state: VioState, cfg: FilterConfig):
         m[cfg.imu_thw_off:cfg.imu_thw_off + 3] = True
     if cfg.calib_imu_g_sensitivity:
         m[cfg.imu_tg_off:cfg.imu_tg_off + 9] = True
-    mask = torch.as_tensor(m, device=state.cov.device).clone()
-    c0, s0 = cfg.clones_off, cfg.slam_off
-    mask[c0:c0 + 6 * cfg.max_clones] = torch.repeat_interleave(
-        state.clone_valid, 6)
-    mask[s0:s0 + 3 * cfg.max_slam] = torch.repeat_interleave(
-        state.slam_valid, 3)
-    return mask
+    mask = torch.as_tensor(m, device=state.cov.device)
+    c0, c1 = cfg.clones_off, cfg.clones_off + 6 * cfg.max_clones
+    s0, s1 = cfg.slam_off, cfg.slam_off + 3 * cfg.max_slam
+    return torch.cat([mask[:c0],
+                      torch.repeat_interleave(state.clone_valid, 6),
+                      mask[c1:s0],
+                      torch.repeat_interleave(state.slam_valid, 3),
+                      mask[s1:]])
 
 
 def set_initial_covariance(state: VioState, cfg: FilterConfig, diag):

@@ -11,12 +11,26 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils._pytree as pytree
 
 from open_vins_tpu_torch.core.layout import FilterConfig
 
 
+def _flatten(record):
+    return [getattr(record, f.name) for f in dataclasses.fields(record)], None
+
+
 class TensorRecord:
-    """Mixin for the port's dataclasses of tensors."""
+    """Mixin for the port's dataclasses of tensors.  Every subclass is
+    registered as a pytree of its fields, in field order, so that
+    `torch.func.vmap` takes and returns records (the JAX package's records
+    are NamedTuples, pytrees by birth)."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        pytree.register_pytree_node(
+            cls, _flatten, lambda values, _: cls(*values),
+            serialized_type_name=f"{cls.__module__}.{cls.__qualname__}")
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)

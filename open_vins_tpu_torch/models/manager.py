@@ -276,17 +276,20 @@ def pre_update(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
 
 def build_joint_system(state: VioState, cfg: FilterConfig,
                        table: ft.FeatureTable,
-                       tri_opts: tri.TriangulationOptions, reserved):
+                       tri_opts: tri.TriangulationOptions, reserved,
+                       batched: bool = False):
     """The joint stack (manager.py:346-354 of the reference): the MSCKF,
     SLAM-landmark and delayed-init leftover rows, all linearized at the
     pre-update state, whitened to unit noise and stacked.  Delayed init
-    inserts its landmarks into the state here.
+    inserts its landmarks into the state here (`batched`: see
+    `updater_slam.delayed_init`).
     Returns (state, table, H [m, D], res [m], diag, n_used)."""
     H1, r1, _, table, diag = msckf_build(state, cfg, table, tri_opts,
                                          reserved, compress=False)
     state, table, H2, r2, _, n_used = slam.build_update(state, cfg, table)
     state, table, _, H3, r3 = slam.delayed_init(state, cfg, table, tri_opts,
-                                                gather_feature_obs)
+                                                gather_feature_obs,
+                                                batched=batched)
     s1, s2 = cfg.sigma_pix, cfg.sigma_pix_slam
     H = torch.cat([H1 / s1, H2 / s2, H3 / s2])
     res = torch.cat([r1 / s1, r2 / s2, r3 / s2])
@@ -308,14 +311,19 @@ def joint_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
 
 
 def step_frame(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
-               tri_opts: tri.TriangulationOptions, frame: FrameInput):
+               tri_opts: tri.TriangulationOptions, frame: FrameInput,
+               batched: bool = False):
     """One frame: steps 1-4 (`pre_update`), then the MSCKF update alone
-    (max_slam=0) or the joint update.  Returns (state, table, diag)."""
+    (max_slam=0) or the joint update.  Returns (state, table, diag).
+
+    `batched=True` when the caller vmaps the step over streams
+    (`runner.run_ensemble`): delayed init then selects its result per
+    stream on the device instead of reading its flag on the host."""
     state, table, reserved = pre_update(state, table, cfg, frame)
     if cfg.max_slam == 0:
         return msckf_update(state, cfg, table, tri_opts)
     state, table, H, res, diag, n_used = build_joint_system(
-        state, cfg, table, tri_opts, reserved)
+        state, cfg, table, tri_opts, reserved, batched=batched)
     return joint_update(state, cfg, table, H, res, diag, n_used)
 
 

@@ -180,7 +180,7 @@ def _phi_qd(lin, new, gravity, dt, cfg: FilterConfig, aux):
     Fv_th = -lie.skew(v_new - v_lin + gravity * dtv) @ R_kT
     RtDa = R_kT @ RaDa
 
-    Phi = torch.zeros((n, 15, 15), dtype=dtype, device=dev)
+    Phi = dt.new_zeros((n, 15, 15))
     Phi[:, 0:3, 0:3] = dR
     Phi[:, 0:3, 9:12] = Fth_bg
     Phi[:, 0:3, 12:15] = Fth_ba
@@ -195,7 +195,7 @@ def _phi_qd(lin, new, gravity, dt, cfg: FilterConfig, aux):
     Phi[:, 12:15, 12:15] = I3
 
     # intrinsic columns B over [dw(6) da(6) tg(9) thw(3)]
-    B = torch.zeros((n, 15, 24), dtype=dtype, device=dev)
+    B = dt.new_zeros((n, 15, 24))
     model = cfg.imu_model
     if cfg.calib_imu_intrinsics:
         H_Da = _H_scale6(u_a, model)
@@ -214,7 +214,7 @@ def _phi_qd(lin, new, gravity, dt, cfg: FilterConfig, aux):
         B[:, 0:3, 12:21] = -dRJr @ RwDw @ _H_tg(a_hat)
 
     # G [15,12] over noise [n_g n_a n_wg n_wa]
-    G = torch.zeros((n, 15, 12), dtype=dtype, device=dev)
+    G = dt.new_zeros((n, 15, 12))
     G[:, 0:3, 0:3] = Fth_bg
     G[:, 0:3, 3:6] = Fth_ba
     G[:, 3:6, 3:6] = -0.5 * dt3 * dt3 * RtDa
@@ -337,7 +337,7 @@ def _phi_qd_analytic(lin, new, gravity, dt, cfg: FilterConfig, aux, xi):
     Fp_ba = -R_kT @ (Xi2 + Xi4 @ RwDwTg) @ RaDa
     Fv_ba = -R_kT @ (Xi1 + Xi3 @ RwDwTg) @ RaDa
 
-    Phi = torch.zeros((n, 15, 15), dtype=dtype, device=dev)
+    Phi = dt.new_zeros((n, 15, 15))
     Phi[:, 0:3, 0:3] = dR
     Phi[:, 0:3, 9:12] = Fth_bg
     Phi[:, 0:3, 12:15] = Fth_ba
@@ -355,7 +355,7 @@ def _phi_qd_analytic(lin, new, gravity, dt, cfg: FilterConfig, aux, xi):
 
     # intrinsic columns B over [dw(6) da(6) tg(9) thw(3)]; thw holds
     # ∂/∂R_GYROtoIMU (kalibr) or ∂/∂R_ACCtoIMU (rpng)
-    B = torch.zeros((n, 15, 24), dtype=dtype, device=dev)
+    B = dt.new_zeros((n, 15, 24))
     model = cfg.imu_model
     if cfg.calib_imu_intrinsics:
         H_Dw = R_w @ _H_scale6(u_w, model)
@@ -383,7 +383,7 @@ def _phi_qd_analytic(lin, new, gravity, dt, cfg: FilterConfig, aux, xi):
         B[:, 6:9, 12:21] = R_kT @ Xi3 @ H_Tg
 
     # G [15,12] over [n_g n_a n_wg n_wa] (Propagator.cpp:816-827)
-    G = torch.zeros((n, 15, 12), dtype=dtype, device=dev)
+    G = dt.new_zeros((n, 15, 12))
     G[:, 0:3, 0:3] = Fth_bg
     G[:, 3:6, 0:3] = Fp_bg
     G[:, 6:9, 0:3] = Fv_bg

@@ -7,6 +7,13 @@ scans the step with `lax.scan`; here a Python loop calls
 `manager.step_frame` once per frame and stacks the same outputs.  The frames
 come from the port's simulator (`stage_run`) or from a staged-run file
 (`open_vins_tpu_torch/convert.py`).
+
+`stage_ensemble` and `run_ensemble` are the bench's seed ensemble
+(bench.py:227-282): B streams of one configuration, one seed each, stepped
+frame by frame as one batched step, `manager.step_frame` under
+`torch.func.vmap` (the reference runs `jax.vmap(run_filter)`);
+`ensemble_metrics` gives each stream's RMSE and NEES and the seed-mean
+NEES.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from open_vins_tpu_torch import resolve_device
 from open_vins_tpu_torch.core.layout import FilterConfig
@@ -78,18 +86,39 @@ def sim_calib(sim: simulator.SimData) -> SimCalib:
 
 def frame_at(frames: manager.FrameInput, k: int) -> manager.FrameInput:
     """Frame k of a batch of frames."""
-    return manager.FrameInput(
-        win=ImuWindow(t=frames.win.t[k], w=frames.win.w[k],
-                      a=frames.win.a[k]),
-        t_new=frames.t_new[k], ids=frames.ids[k], uv=frames.uv[k],
-        uvn=frames.uvn[k], mask=frames.mask[k])
+    return pytree.tree_map(lambda a: a[k], frames)
+
+
+def stack_records(records, dim: int = 0):
+    """Records of one type (nested records too) stacked field by field along
+    a new dimension `dim`."""
+    return pytree.tree_map(lambda *xs: torch.stack(xs, dim=dim), *records)
+
+
+def record_at(record, b: int):
+    """Stream b of a record stacked over streams."""
+    return pytree.tree_map(lambda a: a[b], record)
 
 
 def _to(record, device):
     """A record of tensors (nested records too) moved to `device`."""
-    return type(record)(**{
-        k: _to(v, device) if isinstance(v, TensorRecord) else v.to(device)
-        for k, v in record.items()})
+    return pytree.tree_map(lambda v: v.to(device), record)
+
+
+def _initial_state(cfg: FilterConfig, calib: SimCalib, run: SimRun):
+    """The groundtruth start of a run at frame 0, on the run's device."""
+    return manager.initialize_from_gt(
+        cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
+        calib.bias_a0, 0.0,
+        calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
+        calib_ext_p=calib.cam_p_IinC,
+        calib_intr=calib.cam_intr,
+    )
+
+
+def _per_frame(state, diag):
+    """The outputs kept per frame: (q, p, v, cov[:6,:6], diag)."""
+    return state.q, state.p, state.v, state.cov[..., :6, :6], diag
 
 
 def run_filter(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
@@ -102,25 +131,79 @@ def run_filter(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
     output stacked over frames."""
     dev = resolve_device(device)
     run, calib = _to(run, dev), _to(calib, dev)
-    state = manager.initialize_from_gt(
-        cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
-        calib.bias_a0, 0.0,
-        calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
-        calib_ext_p=calib.cam_p_IinC,
-        calib_intr=calib.cam_intr,
-    )
+    state = _initial_state(cfg, calib, run)
     table = ft.init_table(cfg, max_tracks, dev)
     outs = []
     for k in range(run.frames.t_new.shape[0]):
         state, table, diag = manager.step_frame(state, table, cfg, tri_opts,
                                                 frame_at(run.frames, k))
-        outs.append((state.q, state.p, state.v, state.cov[:6, :6], diag))
-    qs, ps, vs, covs, diags = zip(*outs)
-    diag = manager.StepDiag(**{
-        k: torch.stack([getattr(d, k) for d in diags])
-        for k, _ in diags[0].items()})
-    return state, (torch.stack(qs), torch.stack(ps), torch.stack(vs),
-                   torch.stack(covs), diag)
+        outs.append(_per_frame(state, diag))
+    return state, stack_records(outs)
+
+
+def stage_ensemble(params: simulator.SimParams, seeds, device=None):
+    """One stream per seed (`simulator.draw(params, seed)`, the sine
+    trajectory), each built and staged on `device` (None = CUDA) as
+    `convert.stage_stream` stages one, then stacked.
+
+    Returns (calibs, runs): a SimCalib and a SimRun whose every field has a
+    leading stream axis B = len(seeds)."""
+    dev = resolve_device(device)
+    calibs, runs = [], []
+    for seed in seeds:
+        sim = simulator.build(params, seed=seed,
+                              draws=simulator.draw(params, seed), device=dev)
+        calibs.append(sim_calib(sim))
+        runs.append(stage_run(sim, params))
+    return stack_records(calibs), stack_records(runs)
+
+
+def run_ensemble(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
+                 calibs: SimCalib, runs: SimRun, max_tracks: int = 384,
+                 device=None):
+    """`run_filter` over B streams at once (bench.py:233-236): each stream
+    starts from its groundtruth at frame 0, then every frame is one call of
+    `manager.step_frame` vmapped over the streams (`batched=True`), whose
+    covariance downdate is one batched kernel launch.
+
+    calibs, runs: stacked over streams (`stage_ensemble`).  Returns
+    (final batched state, per-frame (q, p, v, cov[:6,:6], diag)) with each
+    output [B, frames, ...]."""
+    dev = resolve_device(device)
+    runs, calibs = _to(runs, dev), _to(calibs, dev)
+    state, table = ensemble_start(cfg, calibs, runs, max_tracks)
+    step = ensemble_step(cfg, tri_opts)
+    outs = []
+    for k in range(runs.frames.t_new.shape[1]):
+        state, table, diag = step(state, table, ensemble_frame(runs, k))
+        outs.append(_per_frame(state, diag))
+    return state, stack_records(outs, dim=1)
+
+
+def ensemble_start(cfg: FilterConfig, calibs: SimCalib, runs: SimRun,
+                   max_tracks: int):
+    """(state, table) of every stream at frame 0, stacked over streams, on
+    the runs' device: each stream's groundtruth start and an empty
+    table."""
+    B = runs.gt_p.shape[0]
+    state = stack_records([_initial_state(cfg, record_at(calibs, b),
+                                          record_at(runs, b))
+                           for b in range(B)])
+    table = stack_records([ft.init_table(cfg, max_tracks,
+                                         runs.gt_p.device)] * B)
+    return state, table
+
+
+def ensemble_step(cfg: FilterConfig, tri_opts: tri.TriangulationOptions):
+    """The batched frame step: (state, table, frame) stacked over streams
+    -> (state, table, diag) stacked over streams."""
+    return torch.func.vmap(lambda st, tb, fr: manager.step_frame(
+        st, tb, cfg, tri_opts, fr, batched=True))
+
+
+def ensemble_frame(runs: SimRun, k: int) -> manager.FrameInput:
+    """Frame k of every stream of a run stacked over streams."""
+    return pytree.tree_map(lambda a: a[:, k], runs.frames)
 
 
 def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
@@ -145,7 +228,7 @@ def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
         state, table, _ = manager.step_frame(state, table, cfg, tri_opts,
                                              frame_at(run.frames, k))
         outs.append((state.q, state.p, state.v, state.cov[:6, :6]))
-    return state, tuple(torch.stack(x) for x in zip(*outs))
+    return state, stack_records(outs)
 
 
 def pose_metrics(qs, ps, covs6, gt_q, gt_p):
@@ -164,3 +247,19 @@ def pose_metrics(qs, ps, covs6, gt_q, gt_p):
         e = np.concatenate([dth[k], gt_p[k] - ps[k]])
         nees.append(e @ np.linalg.solve(covs6[k] + 1e-12 * np.eye(6), e))
     return rmse, float(np.mean(nees))
+
+
+def ensemble_metrics(outs, runs: SimRun):
+    """Each stream's (RMSE, NEES) by `pose_metrics` and the seed-mean NEES
+    and its spread, as bench.py:246-265 reads the ensemble: outs and runs
+    stacked over streams (`run_ensemble`).  Returns a dict of numpy arrays
+    `rmse` [B] and `nees` [B] and floats `rmse_median`, `nees_seed_mean`,
+    `nees_seed_std` (numpy's population std, as the bench prints)."""
+    qs, ps, _, covs6, _ = outs
+    per = [pose_metrics(qs[b], ps[b], covs6[b], runs.gt_q[b], runs.gt_p[b])
+           for b in range(qs.shape[0])]
+    rmse, nees = (np.asarray(x) for x in zip(*per))
+    return {"rmse": rmse, "nees": nees,
+            "rmse_median": float(np.median(rmse)),
+            "nees_seed_mean": float(nees.mean()),
+            "nees_seed_std": float(nees.std())}

@@ -35,7 +35,7 @@ import torch
 
 from open_vins_tpu_torch.core import ekf
 from open_vins_tpu_torch.core.layout import FilterConfig
-from open_vins_tpu_torch.core.state import VioState, clone_age_order
+from open_vins_tpu_torch.core.state import VioState, clone_age_order, select
 from open_vins_tpu_torch.models import feature_table as ft
 from open_vins_tpu_torch.models import landmark_rep as lrep
 from open_vins_tpu_torch.models import triangulation as tri
@@ -188,7 +188,8 @@ def promotion_candidates(state: VioState, cfg: FilterConfig,
 
 
 def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
-                 tri_opts: tri.TriangulationOptions, gather_fn):
+                 tri_opts: tri.TriangulationOptions, gather_fn,
+                 batched: bool = False):
     """Promote up to MAX_INIT_PER_FRAME mature tracks into free SLAM slots
     by the joint batched delayed initialization (StateHelper::initialize
     parity, UpdaterSLAM.cpp:100-240): the landmarks enter the covariance
@@ -202,7 +203,11 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
 
     The reference skips the init block behind a `lax.cond`; here the
     decision is one read of a device flag on the host per frame (`if`),
-    and the block runs only when there is work."""
+    and the block runs only when there is work.  `batched=True` (the step
+    vmapped over streams, where `lax.cond` under `jax.vmap` becomes a
+    select): the block always runs and each stream takes its result or
+    "nothing" by its own flag, on the device (`state.select`; a non-finite
+    value of the unselected branch is dropped by the select)."""
     require_ported(cfg)
     F = MAX_INIT_PER_FRAME
     D = cfg.state_dim
@@ -218,8 +223,16 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     score, n_free = _init_scores(state, cfg, table)
     rows = ft.select_candidates(score, F)
     cand_ok = score[rows] > 0
+    any_work = torch.any(cand_ok) & (n_free > 0)
+    if batched:
+        work = _delayed_init_work(state, cfg, table, tri_opts, gather_fn,
+                                  rows, cand_ok)
+        return (select(any_work, work[0], state),
+                select(any_work, work[1], table),
+                *(torch.where(any_work, w, z)
+                  for w, z in zip(work[2:], nothing[2:])))
     with torch.profiler.record_function(INIT_FLAG_READ):
-        any_work = bool(torch.any(cand_ok) & (n_free > 0))
+        any_work = bool(any_work)
     if not any_work:
         return nothing
     return _delayed_init_work(state, cfg, table, tri_opts, gather_fn, rows,
@@ -486,7 +499,7 @@ def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
     # clone columns (the new one wins if the slots coincide) and its own
     # landmark columns; an identity block row where nothing moves
     nd = need[:, None, None]
-    rows = torch.zeros((L, 3, D), dtype=dtype, device=dev)
+    rows = state.cov.new_zeros((L, 3, D))
     six = torch.arange(6, device=dev)
     rows[:, :, cfg.clones_off + 6 * dying + six] = torch.where(nd, J_xo, 0.0)
     rows[:, :, cfg.clones_off + 6 * new_slot + six] = torch.where(nd, J_xn,
@@ -496,8 +509,9 @@ def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
                 + torch.arange(3, device=dev)[None, :])  # [L, 3]
     rows = rows.scatter(2, lam_cols[:, None, :].expand(L, 3, 3),
                         torch.where(nd, J_lam, eye3))
-    M = torch.eye(D, dtype=dtype, device=dev)
-    M[cfg.slam_off:cfg.slam_off + 3 * L] = rows.reshape(3 * L, D)
+    eye = torch.eye(D, dtype=dtype, device=dev)
+    s0, s1 = cfg.slam_off, cfg.slam_off + 3 * L
+    M = torch.cat([eye[:s0], rows.reshape(3 * L, D), eye[s1:]])
     cov = M @ state.cov @ M.T
     return state.replace(
         cov=0.5 * (cov + cov.T),
@@ -525,10 +539,12 @@ def evict(state: VioState, cfg: FilterConfig, table: FeatureTable):
     dead = state.slam_valid & (~tracked | ~seen
                                | (state.slam_fail >= MAX_FAIL))
     table = ft.free_rows(table, (eq & dead[:, None]).any(dim=0))
-    keep = torch.ones((cfg.state_dim,), dtype=state.cov.dtype,
-                      device=state.cov.device)
-    keep[cfg.slam_off:cfg.slam_off + 3 * L] = torch.repeat_interleave(
-        (~dead).to(state.cov.dtype), 3)
+    one = torch.ones((cfg.state_dim,), dtype=state.cov.dtype,
+                     device=state.cov.device)
+    s0, s1 = cfg.slam_off, cfg.slam_off + 3 * L
+    keep = torch.cat([one[:s0],
+                      torch.repeat_interleave((~dead).to(state.cov.dtype), 3),
+                      one[s1:]])
     state = state.replace(
         cov=state.cov * keep[:, None] * keep[None, :],
         slam_valid=state.slam_valid & ~dead,

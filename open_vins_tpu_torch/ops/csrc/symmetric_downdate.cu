@@ -2,19 +2,23 @@
 //
 //     out = sym(P - K PHt^T) = 0.5 (P + P^T) - 0.5 (K PHt^T + PHt K^T)
 //
-// P [D, D], K and PHt [D, m], all float32, row-major and contiguous.
+// P [D, D], K and PHt [D, m], all float32, row-major and contiguous; or a
+// batch of such problems, one after another at a fixed stride each
+// (sP floats between P's and out's matrices, sK between K's and PHt's).
 //
 // Replaces the TPU kernel `_downdate_kernel` (open_vins_tpu/ops/pallas_kernels.py,
 // reached through symmetric_downdate_pallas).  That kernel pads D and m up to
 // 128 and computes every 128x128 output tile with two MXU products.  Here:
 //
-//   * a grid over the upper-triangle tile pairs (i <= j) only, with BM x BM
+//   * a grid over the upper-triangle tile pairs (i <= j) only (blockIdx.x)
+//     and over the batch (blockIdx.y: one launch for every problem of a
+//     batch, as the batch axis of the filter ensemble), with BM x BM
 //     output tiles, each thread owning a TM x TM register micro-tile of
 //     outputs, plain f32 FMAs (no TF32).  Two configurations, chosen by D:
 //     from D = 512 on, 64 x 64 tiles on 16 x 16 threads (4 x 4 micro-tiles;
 //     276 CTAs at D = 1434); below, 16 x 16 tiles on 8 x 8 threads (2 x 2
 //     micro-tiles; 153 CTAs at D = 270, where 32 x 32 tiles gave 45 CTAs and
-//     left most SMs idle);
+//     left most SMs idle; for a batch of 8 they gave no gain over 16 x 16);
 //   * the K (and PHt) row panels of tiles i and j are staged along m in
 //     chunks (16 wide for the large tiles, 32 for the small ones) with
 //     4-byte cp.async into a ring of STAGES buffers, transposed, so a thread
@@ -38,7 +42,12 @@
 // = 0.475 GFLOP and moves 17.8 MB, so it is bound by f32 FMA throughput
 // (7 us at 67 TFLOP/s); at the main paths' (120, 81) and (270, 231) the
 // device work is a few microseconds, and the loop is bound by the latency of
-// its loads and barriers over 15 or fewer chunks.
+// its loads and barriers over 15 or fewer chunks.  A batch of 8 at
+// (270, 231), the filter ensemble's call, does 8 D (D + 1) m = 135 MFLOP
+// and moves 6.7 MB, about 2 us at the card's rates, in one launch of
+// 8 x 153 = 1,224 CTAs (under one wave at the 10 CTAs an SM holds); it
+// takes about 20 us, as it did with 32 x 32 tiles (two FMAs per
+// shared-memory load): what holds it is not the issue of those loads.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -80,7 +89,8 @@ __global__ void __launch_bounds__(TX * TX)
 symmetric_downdate_kernel(const float* __restrict__ P,
                           const float* __restrict__ K,
                           const float* __restrict__ PHt,
-                          float* __restrict__ out, int D, int m, int T) {
+                          float* __restrict__ out, int D, int m, int T,
+                          long long sP, long long sK) {
   constexpr int NT = TX * TX;
   constexpr int TM = BM / TX;       // micro-tile side
   constexpr int LD = BM + 4;        // staged panel row: [BK][LD], 16 B aligned
@@ -103,6 +113,11 @@ symmetric_downdate_kernel(const float* __restrict__ P,
   const int tj = ti + q;
   const int r0 = ti * BM;  // output rows
   const int c0 = tj * BM;  // output columns
+  // this block's problem of the batch
+  P += blockIdx.y * sP;
+  out += blockIdx.y * sP;
+  K += blockIdx.y * sK;
+  PHt += blockIdx.y * sK;
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -239,7 +254,8 @@ symmetric_downdate_kernel(const float* __restrict__ P,
 
 template <int BM, int TX, int BK, bool SAME>
 static int launch(const float* P, const float* K, const float* PHt,
-                  float* out, int D, int m, cudaStream_t stream) {
+                  float* out, int batch, int D, int m, long long sP,
+                  long long sK, cudaStream_t stream) {
   constexpr int smem = (STAGES * (SAME ? 2 : 4) * BK * (BM + 4) +
                         BM * (BM + 1)) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -250,22 +266,30 @@ static int launch(const float* P, const float* K, const float* PHt,
   }
   const int T = (D + BM - 1) / BM;
   const int n_blocks = T * (T + 1) / 2;
-  symmetric_downdate_kernel<BM, TX, BK, SAME><<<n_blocks, TX * TX, smem,
+  const dim3 grid(n_blocks, batch);
+  symmetric_downdate_kernel<BM, TX, BK, SAME><<<grid, TX * TX, smem,
                                                  stream>>>(
-      P, K, PHt, out, D, m, T);
+      P, K, PHt, out, D, m, T, sP, sK);
   return (int)cudaGetLastError();
 }
 
-// Launch on `stream`; `same` != 0 when K and PHt are one tensor.  Returns
-// cudaGetLastError() (0 = launched).
+// Launch `batch` problems on `stream`, matrix b of P and out at b * sP
+// floats, of K and PHt at b * sK; `same` != 0 when K and PHt are one tensor.
+// Returns cudaGetLastError() (0 = launched).
 extern "C" int symmetric_downdate_f32(const float* P, const float* K,
-                                      const float* PHt, float* out, int D,
-                                      int m, int same, void* stream) {
-  if (D <= 0 || m < 0) return (int)cudaErrorInvalidValue;
+                                      const float* PHt, float* out,
+                                      int batch, int D, int m, long long sP,
+                                      long long sK, int same, void* stream) {
+  if (batch <= 0 || batch > 65535 || D <= 0 || m < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D >= 512)
-    return same ? launch<64, 16, 16, true>(P, K, PHt, out, D, m, st)
-                : launch<64, 16, 16, false>(P, K, PHt, out, D, m, st);
-  return same ? launch<16, 8, 32, true>(P, K, PHt, out, D, m, st)
-              : launch<16, 8, 32, false>(P, K, PHt, out, D, m, st);
+    return same ? launch<64, 16, 16, true>(P, K, PHt, out, batch, D, m, sP,
+                                           sK, st)
+                : launch<64, 16, 16, false>(P, K, PHt, out, batch, D, m, sP,
+                                            sK, st);
+  return same ? launch<16, 8, 32, true>(P, K, PHt, out, batch, D, m, sP, sK,
+                                        st)
+              : launch<16, 8, 32, false>(P, K, PHt, out, batch, D, m, sP, sK,
+                                         st);
 }

@@ -161,3 +161,127 @@ def test_cuda_staging_matches_cpu_staging(num_cams, model):
                       (runs["cpu"].gt_p, runs["cuda"].gt_p, 1e-5),
                       (runs["cpu"].gt_q, runs["cuda"].gt_q, 1e-5)):
         assert (a - b.cpu()).abs().max() <= tol
+
+
+def _batched_inputs(n, D, m, same):
+    """n problems of `downdate_inputs` (seeds 0..n-1) stacked on the card."""
+    ins = [downdate_inputs(D, m, same, seed=b) for b in range(n)]
+    return [torch.stack([torch.from_numpy(x[i]) for x in ins]).cuda()
+            for i in range(3)]
+
+
+# batched symmetric_downdate: the ensemble's (270, 231) and the MSCKF-only
+# (120, 81) at 8 streams, one and three streams, a ragged D, m = 0, and a
+# batch of 32 with m under one chunk
+BATCHED_SHAPES = [(8, 270, 231), (8, 120, 81), (1, 270, 231), (3, 120, 81),
+                  (3, 33, 20), (3, 33, 0), (8, 270, 0), (32, 100, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("n,D,m", BATCHED_SHAPES)
+def test_cuda_batched_downdate(n, D, m, same):
+    """symmetric_downdate under vmap: one launch for the batch, each matrix
+    within 1e-5·max(1, ‖P‖∞) of its plain version and exactly symmetric."""
+    _need_gpu()
+    P, K, PHt = _batched_inputs(n, D, m, same)
+    before = kernels.symmetric_downdate.launches
+    if same:
+        out = torch.func.vmap(
+            lambda p, k: kernels.symmetric_downdate(p, k, k))(P, K)
+    else:
+        out = torch.func.vmap(kernels.symmetric_downdate)(P, K, PHt)
+    torch.cuda.synchronize()
+    assert kernels.symmetric_downdate.launches == before + 1
+    ref = kernels.symmetric_downdate_ref(P, K, K if same else PHt)
+    for b in range(n):
+        tol = 1e-5 * max(1.0, P[b].abs().sum(dim=1).max().item())
+        assert (out[b] - ref[b]).abs().max().item() <= tol
+        assert torch.equal(out[b], out[b].T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(None, 0, 0), (0, None, None), (1, 0, 2)],
+                         ids=str)
+def test_cuda_batched_downdate_broadcast(dims):
+    """Unbatched operands broadcast to the batch, and a batch dimension that
+    is not the first: against single kernel calls at 1e-5·max(1, ‖P‖∞)."""
+    _need_gpu()
+    P, K, PHt = _batched_inputs(3, 270, 231, False)
+    args = [x[0] if d is None else x.movedim(0, d).contiguous()
+            for x, d in zip((P, K, PHt), dims)]
+    out = torch.func.vmap(kernels.symmetric_downdate, in_dims=dims)(*args)
+    for b in range(3):
+        one = kernels.symmetric_downdate(*(
+            a if d is None else a.select(d, b).contiguous()
+            for a, d in zip(args, dims)))
+        tol = 1e-5 * max(1.0, one.abs().sum(dim=1).max().item())
+        assert (out[b] - one).abs().max().item() <= tol
+        assert torch.equal(out[b], out[b].T)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_single_product_matches_two():
+    """K passed twice under vmap takes the single product; an equal copy
+    the two-product form: both agree within the tolerance."""
+    _need_gpu()
+    P, K, _ = _batched_inputs(8, 270, 231, True)
+    one = torch.func.vmap(lambda p, k: kernels.symmetric_downdate(p, k, k))(
+        P, K)
+    two = torch.func.vmap(kernels.symmetric_downdate)(P, K, K.clone())
+    tol = 1e-5 * max(1.0, P.abs().sum(dim=2).max().item())
+    assert (one - two).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_qr_vmap_rule():
+    """householder_qr_blocks under vmap: the streams folded into the block
+    axis, one launch, equal to per-stream launches (the same kernel on the
+    same blocks)."""
+    _need_gpu()
+    A = torch.stack([torch.from_numpy(stack_blocks(1174, 271, seed=b))
+                     for b in range(3)]).cuda()
+    before = kernels.householder_qr_blocks.launches
+    R = torch.func.vmap(kernels.householder_qr_blocks)(A)
+    torch.cuda.synchronize()
+    assert kernels.householder_qr_blocks.launches == before + 1
+    for b in range(3):
+        assert torch.equal(R[b], kernels.householder_qr_blocks(A[b]))
+
+
+@pytest.mark.cuda
+def test_cuda_ensemble_step_matches_single_streams():
+    """`runner.run_ensemble`'s batched step on the card at a small size (3
+    streams, 5 clones, 4 landmarks, ACI²), frame by frame from one state,
+    against each stream's own step: covariance within 1e-5·‖P‖∞ (5e-5 in
+    a step that initializes a landmark), one downdate launch per batched
+    step."""
+    _need_gpu()
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import manager
+    from open_vins_tpu_torch.models import triangulation as tri
+
+    params = simulator.SimParams(imu_rate=100.0, cam_rate=10.0, num_cams=1,
+                                 num_pts=12, map_size=128, duration=1.0)
+    cfg = FilterConfig(max_clones=5, max_slam=4, num_cams=1,
+                       max_msckf_in_update=8, integration="analytical")
+    opts = tri.TriangulationOptions(max_runs=2)
+    calibs, runs = runner.stage_ensemble(params, range(3), "cuda")
+    state, table = runner.ensemble_start(cfg, calibs, runs, 64)
+    step = runner.ensemble_step(cfg, opts)
+    for k in range(runs.frames.t_new.shape[1]):
+        frame = runner.ensemble_frame(runs, k)
+        before = kernels.symmetric_downdate.launches
+        post = step(state, table, frame)
+        assert kernels.symmetric_downdate.launches == before + 1
+        for b in range(3):
+            one = manager.step_frame(runner.record_at(state, b),
+                                     runner.record_at(table, b), cfg, opts,
+                                     runner.record_at(frame, b))
+            new = bool((one[0].slam_valid
+                        & ~runner.record_at(state, b).slam_valid).any())
+            norm = one[0].cov.abs().sum(dim=1).max().item()
+            gap = (post[0].cov[b] - one[0].cov).abs().max().item()
+            assert gap <= (5e-5 if new else 1e-5) * norm, (k, b, gap / norm)
+            assert torch.equal(post[1].ids[b], one[1].ids)
+        state, table = post[0], post[1]

@@ -39,6 +39,17 @@ digest (`convert.staging_digest`).  Write them with
 ``python tests/test_torch_fixture.py --write-sim-refs`` (JAX and the port
 on the CPU, a few minutes); `test_sim_refs_match_fresh_run` (slow)
 re-derives both.
+
+`open_vins_tpu_torch/data/ensemble8_sim20_ref.npz` holds bench.py's 8-seed
+ensemble (bench.py:221-282): the operating point on 8 streams that the
+port's simulator stages on the CPU from `simulator.draw(params, s)`,
+s = 0..7 (`runner.stage_ensemble`), run through
+`jax.jit(jax.vmap(runner.run_filter))` as bench.py:233-235 runs it: per
+stream the positions, RMSE, NEES (bench.py's formulas), mean landmark and
+MSCKF counts and the staging digest (`convert.ensemble_digest`), and the
+seed-mean NEES with its std.  Write it with
+``python tests/test_torch_fixture.py --write-ensemble-ref`` (JAX and the
+port on the CPU, several minutes).
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -84,6 +96,12 @@ LARGEMAP_META = {
                 integration="analytical", joint_update_form="qr"),
     "max_tracks": 768,
 }
+ENSEMBLE_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                            "ensemble8_sim20_ref.npz")
+# bench.py:221-282: the operating point on 8 streams, seeds 0..7, on the sine
+# trajectory (udel_gore.txt is not in the repository, bench.py:99-103)
+ENSEMBLE_META = {"sim": SIM, "traj": None, "seeds": list(range(8)),
+                 "cfg": OPPOINT_CFG, "max_tracks": MAX_TRACKS}
 V102_TRUTH = "results/suite/truths/V1_02_medium.txt"
 V102_T_RUN = 40.0
 
@@ -316,6 +334,79 @@ def write_sim_reference(path, meta):
         "n_msckf_mean": float(ref["ref_n_msckf"].mean())}))
 
 
+class _SimFields(NamedTuple):
+    """What the JAX `run_filter` reads of a simulator (a pytree, so that
+    `jax.vmap` maps it over streams)."""
+
+    bias_g_traj: object
+    bias_a_traj: object
+    cam_R_ItoC: object
+    cam_p_IinC: object
+    cam_intr: object
+
+
+def jax_ensemble_on_port_streams(meta):
+    """The port's CPU staging of `meta`'s streams (`runner.stage_ensemble`)
+    and `jax.jit(jax.vmap(runner.run_filter))` on them, as
+    bench.py:227-236 runs the ensemble: (runs, digest, reference arrays)."""
+    import jax
+    import torch
+
+    from open_vins_tpu.core.layout import FilterConfig
+    from open_vins_tpu.models import manager, runner
+    from open_vins_tpu.models import triangulation as tri
+    from open_vins_tpu.models.propagator import ImuWindow
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.models import runner as trunner
+    from open_vins_tpu_torch.sim import simulator as tsim
+
+    calibs, runs_t = trunner.stage_ensemble(tsim.SimParams(**meta["sim"]),
+                                            meta["seeds"], "cpu")
+    a = convert.run_to_numpy(runs_t)
+    frames = manager.FrameInput(
+        win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    run = runner.SimRun(frames=frames, gt_q=a["gt_q"], gt_p=a["gt_p"],
+                        gt_v=a["gt_v"])
+    c = {k: v.numpy() for k, v in calibs.items()}
+    sims = _SimFields(bias_g_traj=c["bias_g0"][:, None],
+                      bias_a_traj=c["bias_a0"][:, None],
+                      cam_R_ItoC=c["cam_R_ItoC"], cam_p_IinC=c["cam_p_IinC"],
+                      cam_intr=c["cam_intr"])
+    cfg = FilterConfig(**meta["cfg"])
+    state, outs = jax.jit(jax.vmap(lambda s, r: runner.run_filter(
+        cfg, tri.TriangulationOptions(), s, None, r,
+        max_tracks=meta["max_tracks"])))(sims, run)
+    qs, ps, covs6 = (np.asarray(outs[0]), np.asarray(outs[1]),
+                     np.asarray(outs[3]))
+    rmse, nees = np.asarray([trunner.pose_metrics(
+        *(torch.as_tensor(x[b]) for x in (qs, ps, covs6)),
+        runs_t.gt_q[b], runs_t.gt_p[b]) for b in range(len(qs))]).T
+    diag = outs[4]
+    ref = dict(
+        ref_p=ps, ref_rmse=rmse, ref_nees=nees,
+        ref_n_slam_mean=np.asarray(diag.n_slam).mean(axis=1),
+        ref_n_msckf_mean=np.asarray(diag.n_msckf).mean(axis=1),
+        ref_rmse_median=np.float64(np.median(rmse)),
+        ref_nees_seed_mean=np.float64(nees.mean()),
+        ref_nees_seed_std=np.float64(nees.std()),
+        ref_finite=np.bool_(np.isfinite(np.asarray(state.cov)).all()))
+    return runs_t, convert.ensemble_digest(runs_t), ref
+
+
+def write_ensemble_reference(path=ENSEMBLE_REF, meta=ENSEMBLE_META):
+    _, digest, ref = jax_ensemble_on_port_streams(meta)
+    np.savez_compressed(path, **ref,
+                        **{f"digest_{k}": v for k, v in digest.items()},
+                        meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({
+        "path": path, "bytes": os.path.getsize(path),
+        "streams": len(meta["seeds"]), "frames": int(ref["ref_p"].shape[1]),
+        **{k: (v.tolist() if v.ndim else v.item()) for k, v in ref.items()
+           if k != "ref_p"}}))
+
+
 def _cfg_dim(cfg):
     from open_vins_tpu_torch.core.layout import FilterConfig
 
@@ -379,7 +470,8 @@ def test_fixture_matches_fresh_staging():
 
 
 if __name__ == "__main__":
-    if {"--write", "--write-oppoint", "--write-sim-refs"} & set(sys.argv):
+    if {"--write", "--write-oppoint", "--write-sim-refs",
+            "--write-ensemble-ref"} & set(sys.argv):
         import jax
 
         # stage on the CPU, as the tests re-stage it
@@ -392,5 +484,7 @@ if __name__ == "__main__":
         if "--write-sim-refs" in sys.argv:
             write_sim_reference(LARGEMAP_REF, LARGEMAP_META)
             write_sim_reference(V102_REF, v102_meta())
+        if "--write-ensemble-ref" in sys.argv:
+            write_ensemble_reference()
     else:
         print(__doc__)

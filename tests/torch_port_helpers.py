@@ -290,3 +290,47 @@ def jax_calib_draws(num_cams, seed):
         imu_tg=jax.random.normal(ks[7], (9,)))
     return convert.calib_draws_from_numpy(
         {k: np.asarray(v) for k, v in arrays.items()})
+
+
+def ensemble_problem(max_slam=0, integration="rk4", seeds=(0, 1, 2)
+                     ) -> Problem:
+    """B = len(seeds) streams of `graft_problem`'s sizes (5 clones, 12
+    points, a 10 Hz camera for 1 s, <= 8 MSCKF features, two Gauss-Newton
+    runs), with `slam_problem`'s landmarks when max_slam > 0 (GLOBAL_3D,
+    the joint "qr" update; pass integration="analytical" for its ACI²), one
+    seed each.  The port's simulator stages the streams on the CPU (no JAX
+    simulator to compile) and each starts from its groundtruth; the
+    Problem's state, table and frames are the JAX package's records of the
+    streams stacked on a leading axis ([B, frames, ...] for the frames)."""
+    import jax.numpy as jnp
+    from open_vins_tpu.core.layout import FilterConfig as JCfg
+    from open_vins_tpu.core.state import VioState as JState
+    from open_vins_tpu.models import feature_table as jft
+    from open_vins_tpu.models import manager as jman
+    from open_vins_tpu.models import triangulation as jtri
+    from open_vins_tpu.models.propagator import ImuWindow as JWin
+    from open_vins_tpu_torch.core.layout import FilterConfig as TCfg
+    from open_vins_tpu_torch.models import runner as trun
+    from open_vins_tpu_torch.models import triangulation as ttri
+    from open_vins_tpu_torch.sim import simulator
+
+    params = simulator.SimParams(imu_rate=100.0, cam_rate=10.0, num_cams=1,
+                                 num_pts=12, map_size=128, duration=1.0)
+    kw = dict(max_clones=5, max_slam=max_slam, num_cams=1,
+              max_msckf_in_update=8, integration=integration)
+    tc = TCfg(**kw)
+    calibs, runs = trun.stage_ensemble(params, seeds, CPU)
+    state, table = trun.ensemble_start(tc, calibs, runs, 64)
+
+    def to_jax(cls, record):
+        return cls(**{k: jnp.asarray(np_of(v)) for k, v in record.items()})
+
+    a = convert.run_to_numpy(runs)
+    frames = jman.FrameInput(
+        win=JWin(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    return Problem(to_jax(JState, state), to_jax(jft.FeatureTable, table),
+                   frames, JCfg(**kw), tc,
+                   jtri.TriangulationOptions(max_runs=2),
+                   ttri.TriangulationOptions(max_runs=2))

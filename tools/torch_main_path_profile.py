@@ -1,7 +1,8 @@
 """Where a frame of the PyTorch port's main path spends its time on the GPU.
 
     python tools/torch_main_path_profile.py
-        [--config msckf|oppoint|largemap|replay] [--warm 40] [--frames 40]
+        [--config msckf|oppoint|largemap|replay|ensemble8] [--warm 40]
+        [--frames 40]
 
 Steps a closed loop (`models/manager.step_frame`) through `--warm` frames,
 then traces the next `--frames` frames with `torch.profiler` and prints one
@@ -19,8 +20,13 @@ operating point (SLAM, ACI², the joint "qr" update) of
 `largemap` (bench.py's large map, D = 1434, 159 frames) and `replay` (the
 V1_02 replay in ANCHORED_MSCKF_INVERSE_DEPTH, 799 frames) are staged on the
 card by the port's simulator from the configuration of
-`largemap_sim8_seed0_ref.npz` and `v102_replay40_seed0_ref.npz`.  Needs a
-CUDA device; the card's name and power limit are printed with the numbers.
+`largemap_sim8_seed0_ref.npz` and `v102_replay40_seed0_ref.npz`;
+`ensemble8` is bench.py's 8-seed ensemble of the operating point
+(`ensemble8_sim20_ref.npz`), staged by `runner.stage_ensemble` and stepped
+by `runner.ensemble_step` (one batched step per frame for all 8 streams,
+so "per frame" means per batched frame of 8 stream frames; delayed init
+selects on the device and reads no flag).  Needs a CUDA device; the card's
+name and power limit are printed with the numbers.
 """
 
 from __future__ import annotations
@@ -45,12 +51,14 @@ from open_vins_tpu_torch.models import manager, runner  # noqa: E402
 from open_vins_tpu_torch.models import triangulation as tri  # noqa: E402
 from open_vins_tpu_torch.models import updater_slam  # noqa: E402
 from open_vins_tpu_torch.ops import kernels, lie  # noqa: E402
+from open_vins_tpu_torch.sim import simulator  # noqa: E402
 
 DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
 OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
 STAGED_REFS = {"largemap": os.path.join(DATA, "largemap_sim8_seed0_ref.npz"),
                "replay": os.path.join(DATA, "v102_replay40_seed0_ref.npz")}
+ENSEMBLE_REF = os.path.join(DATA, "ensemble8_sim20_ref.npz")
 
 
 def _union_us(intervals):
@@ -69,32 +77,49 @@ def _union_us(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="msckf",
-                    choices=("msckf", "oppoint", "largemap", "replay"))
+                    choices=("msckf", "oppoint", "largemap", "replay",
+                             "ensemble8"))
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--frames", type=int, default=40)
     args = ap.parse_args()
 
-    if args.config in STAGED_REFS:
-        ref = convert.load_reference(STAGED_REFS[args.config])
-        sim, _, run = convert.stage_stream(ref["meta"], "cuda")
-        calib = runner.sim_calib(sim)
-    else:
-        run, calib, ref = convert.load_staged_run(FIXTURE, "cuda")
-    if args.config == "oppoint":
-        ref = convert.load_reference(OPPOINT_REF)
-    cfg = FilterConfig(**ref["meta"]["cfg"])
     opts = tri.TriangulationOptions()
-    state = manager.initialize_from_gt(
-        cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
-        calib.bias_a0, 0.0, calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
-        calib_ext_p=calib.cam_p_IinC, calib_intr=calib.cam_intr)
-    table = ft.init_table(cfg, ref["meta"]["max_tracks"], "cuda")
+    if args.config == "ensemble8":
+        ref = convert.load_reference(ENSEMBLE_REF)
+        meta = ref["meta"]
+        cfg = FilterConfig(**meta["cfg"])
+        calibs, runs = runner.stage_ensemble(
+            simulator.SimParams(**meta["sim"]), meta["seeds"], "cuda")
+        state, table = runner.ensemble_start(cfg, calibs, runs,
+                                             meta["max_tracks"])
+        batched = runner.ensemble_step(cfg, opts)
 
-    def step(k):
-        nonlocal state, table
-        state, table, diag = manager.step_frame(
-            state, table, cfg, opts, runner.frame_at(run.frames, k))
-        return diag
+        def step(k):
+            nonlocal state, table
+            state, table, diag = batched(state, table,
+                                         runner.ensemble_frame(runs, k))
+            return diag
+    else:
+        if args.config in STAGED_REFS:
+            ref = convert.load_reference(STAGED_REFS[args.config])
+            sim, _, run = convert.stage_stream(ref["meta"], "cuda")
+            calib = runner.sim_calib(sim)
+        else:
+            run, calib, ref = convert.load_staged_run(FIXTURE, "cuda")
+        if args.config == "oppoint":
+            ref = convert.load_reference(OPPOINT_REF)
+        cfg = FilterConfig(**ref["meta"]["cfg"])
+        state = manager.initialize_from_gt(
+            cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
+            calib.bias_a0, 0.0, calib_ext_q=lie.rot_2_quat(calib.cam_R_ItoC),
+            calib_ext_p=calib.cam_p_IinC, calib_intr=calib.cam_intr)
+        table = ft.init_table(cfg, ref["meta"]["max_tracks"], "cuda")
+
+        def step(k):
+            nonlocal state, table
+            state, table, diag = manager.step_frame(
+                state, table, cfg, opts, runner.frame_at(run.frames, k))
+            return diag
 
     for k in range(args.warm):
         step(k)
@@ -151,6 +176,8 @@ def main():
 
     print(json.dumps({
         "config": args.config, "state_dim": cfg.state_dim,
+        "streams_per_frame": (len(meta["seeds"]) if args.config == "ensemble8"
+                              else 1),
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": smi, "frames": n, "first_frame": args.warm,
         "n_msckf_mean": mean("n_msckf"), "n_slam_mean": mean("n_slam"),
