@@ -31,9 +31,27 @@ so the exit code is not 0):
    through `householder_qr_blocks`), against `compress_system_ranges`
    (the filter's CholeskyQR2) on the same stack: same information and the
    same EKF update;
+   At frame 30 the same phase records the operands of the K ≠ PHt
+   downdates that the push-through forms give on the frame's real joint
+   stack — (P_cols, Wᵀ) of woodbury and newton, (P_cols·W, P_cols) of spd,
+   both at (270, 231) — and of a real ZUPT attempt on the frame's IMU
+   window, (P_cols, Wᵀ) at (270, 9); each is checked against the plain
+   version and timed beside `torch.addmm` (`k_not_pht` in the kernels
+   line);
 6. the operating point's closed loop (bench.py:94-96: 11 clones, 50 SLAM
    landmarks, <= 40 MSCKF features, ACI², the joint "qr" update) over the
-   same 399 frames, through `runner.run_filter`;
+   same 399 frames, through `runner.run_filter`; then the same frames in
+   the woodbury, spd and newton joint forms (`main_path_forms`: one
+   downdate launch per frame, the newton solve's residual under its no-op
+   gate) and in the reference-exact sequential ordering
+   (`main_path_sequential`: the MSCKF, SLAM and init-leftover updates,
+   each its own downdate), each against the JAX run of its configuration;
+   then the operating point's widths with ZUPT on 20 s of the stop-and-go
+   trajectory of tests/test_slam_stack.py (`stop_and_go_trajectory`, a
+   numpy copy), staged on the card and held against the CPU staging's
+   digest, with at least 3 ZUPT frames after frame 30 and a count within
+   20 % of the JAX run's (`main_path_zupt`); each of these loops must also
+   land within 25 % of its JAX run's NEES;
 7. the port's simulator stages two streams on the card from
    `simulator.draw(params, 0)` (`convert.stage_stream`), each held against
    the digest of the port's CPU staging of the same draws that its
@@ -68,7 +86,12 @@ so the exit code is not 0):
    launch per batch) at [8, 270, 231] and [8, 120, 81] (timed beside
    `torch.baddbmm`), batch 1, batch 3 at D = 33, m = 0, batch 32 at
    (100, 7) and a broadcast P, and the QR kernel's vmap rule on 8 streams'
-   stacked blocks.
+   stacked blocks.  Then the ensemble's streams are stepped 40 frames in
+   the newton joint form with ZUPT (`main_path_ensemble8_newton_zupt`):
+   two batched downdate launches per batched frame (the ZUPT attempt's at
+   m = 9 and the newton update's, both K ≠ PHt), the masked polish sweeps
+   on the card, and at frame 30 each stream against its own step
+   (NEWTON_STEP_TOL, NEWTON_INIT_STEP_TOL).
 
 Each closed loop sets the kernels' launch counts to 0 just before its timed
 run and reads them just after, and must launch `symmetric_downdate` at
@@ -142,10 +165,52 @@ RUN_FROM_K0, RUN_FROM_FRAMES, RUN_FROM_RMSE_M = 40, 200, 0.1
 ENSEMBLE_WARM_FRAMES = 40
 ENSEMBLE_NEES_SPREAD = 0.25  # seed-mean NEES against the JAX seed-mean
 ENSEMBLE_CHECK_FRAME = 30  # window full, landmarks in use
+FORM_REFS = {form: os.path.join(DATA, f"oppoint_{form}_sim20_seed0_ref.npz")
+             for form in ("woodbury", "spd", "newton")}
+SEQUENTIAL_REF = os.path.join(DATA, "sequential_sim20_seed0_ref.npz")
+ZUPT_REF = os.path.join(DATA, "zupt_stopgo20_seed0_ref.npz")
+NEES_SPREAD = 0.25  # a loop's NEES against its JAX run's
+NEWTON_NOOP_TOL = 5e-2  # ekf.kalman_update_math_newton's no-op gate
+ZUPT_MIN_FRAMES, ZUPT_FIRST_FRAME = 3, 30  # tests/test_slam_stack.py:120-124
+ZUPT_COUNT_SPREAD = 0.2  # ZUPT frames against the JAX run's count
+FORMS_CAPTURE_FRAME = 30  # the K ≠ PHt operands of the forms and of ZUPT
+# the vmapped newton + ZUPT check: 8 streams of the ensemble, this many
+# frames, each stream held against its own step at ENSEMBLE_CHECK_FRAME
+NEWTON_ZUPT_FRAMES = 40
+# the newton form's batched step against its single-stream step: 5 times
+# the "qr" rule (its Newton sweeps amplify the batched products' rounding;
+# tests/test_torch_zupt.py)
+NEWTON_STEP_TOL, NEWTON_INIT_STEP_TOL = 5e-5, 2.5e-4
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def stop_and_go_trajectory(duration, dt=0.1):
+    """The stop-and-go trajectory of tests/test_slam_stack.py:27-59, in
+    numpy: the sine trajectory driven through a time warp whose rate
+    1 − cos(1.5 t) reaches zero periodically, so the platform comes to
+    real stops.  Returns float32 (times [K], R_ItoG [K, 3, 3], p [K, 3])."""
+    import numpy as np
+
+    n = int(duration / dt) + 8
+    t = np.arange(n, dtype=np.float32) * np.float32(dt)
+    w = 1.5
+    s = t - np.sin(w * t) / w
+    p = np.stack([2.0 * np.sin(0.6 * s), 2.0 * np.cos(0.6 * s),
+                  1.0 + 0.5 * np.sin(0.9 * s)], axis=-1)
+    yaw = 0.6 * s + 0.3 * np.sin(0.5 * s)
+    pitch = 0.2 * np.sin(0.7 * s)
+    cy, sy, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+    zero, one = np.zeros_like(t), np.ones_like(t)
+    Rz = np.stack([np.stack([cy, -sy, zero], -1),
+                   np.stack([sy, cy, zero], -1),
+                   np.stack([zero, zero, one], -1)], -2)
+    Ry = np.stack([np.stack([cp, zero, sp], -1),
+                   np.stack([zero, one, zero], -1),
+                   np.stack([-sp, zero, cp], -1)], -2)
+    return (t, (Rz @ Ry).astype(np.float32), p.astype(np.float32))
 
 
 def call_ms(fn, n_runs=200, n_warm=20):
@@ -473,6 +538,93 @@ def phase_qr():
     return rows
 
 
+class _CaptureDowndates:
+    """Within the block, record the (P, K, PHt) operands of every
+    `symmetric_downdate` that `core.ekf` calls (copies; the call itself
+    goes through)."""
+
+    def __enter__(self):
+        from open_vins_tpu_torch.core import ekf
+
+        self.calls, self._ekf = [], ekf
+        self._fn = ekf.symmetric_downdate
+
+        def record(P, K, PHt):
+            self.calls.append((P.clone(), K.clone(), PHt.clone(),
+                               K.data_ptr() == PHt.data_ptr()))
+            return self._fn(P, K, PHt)
+
+        ekf.symmetric_downdate = record
+        return self
+
+    def __exit__(self, *exc):
+        self._ekf.symmetric_downdate = self._fn
+
+
+def _form_operands(state, cfg, H, res, before, frame):
+    """The downdate operands of the push-through forms on one real joint
+    stack H, res (`state`: the frame's pre-update state), and of a real
+    ZUPT attempt on the frame's IMU window from `before`, the state before
+    the frame: name -> (P, K, PHt)."""
+    from open_vins_tpu_torch.core import ekf
+    from open_vins_tpu_torch.models import updater_zupt as zupt
+
+    ranges = cfg.slam_meas_support_ranges
+    ops = {}
+    with _CaptureDowndates() as cap:
+        ekf.ekf_update_info(state, cfg, H, res, ranges)
+        ekf.ekf_update_spd(state, cfg, H, res, ranges)
+    (P, K, PHt, same), (P2, K2, PHt2, same2) = cap.calls
+    assert not same and not same2
+    ops["info_newton"] = (P, K, PHt)  # (P_cols, Wᵀ): woodbury and newton
+    ops["spd"] = (P2, K2, PHt2)  # (P_cols·W, P_cols)
+    with _CaptureDowndates() as cap:
+        zupt.try_zupt(before, cfg, frame.win, frame.t_new,
+                      before.cov.new_zeros(()))
+    P3, K3, PHt3, same3 = cap.calls[0]
+    assert not same3
+    ops["zupt"] = (P3, K3, PHt3)
+    return ops
+
+
+def phase_downdate_forms(operands):
+    """symmetric_downdate with K ≠ PHt on the real operands of the
+    woodbury / newton downdate (P_cols, Wᵀ), the spd one (P_cols·W, P_cols)
+    and the ZUPT's (P_cols, Wᵀ) at m = 9, against its plain version, timed
+    beside `torch.addmm(P, K, PHtᵀ, alpha=-1)`."""
+    import torch
+
+    from open_vins_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name, (P, K, PHt) in operands.items():
+        D, m = K.shape
+        out = kernels.symmetric_downdate(P, K, PHt)
+        ref = kernels.symmetric_downdate_ref(P, K, PHt)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 1e-5 * max(1.0, P.abs().sum(dim=1).max().item())
+        row = {"phase": "kernel", "name": "symmetric_downdate",
+               "operands": name, "D": D, "m": m, "K_is_PHt": False,
+               "max_abs_err": err, "tol": tol,
+               "exactly_symmetric": bool(torch.equal(out, out.T))}
+        if not (err <= tol and row["exactly_symmetric"]
+                and torch.isfinite(out).all()):
+            emit(row)
+            raise AssertionError(f"symmetric_downdate disagrees on the "
+                                 f"{name} operands")
+        row["bound_ms"], row["bound_by"] = downdate_bound_ms(D, m, False)
+        _times(row, lambda: kernels.symmetric_downdate(P, K, PHt),
+               lambda: torch.addmm(P, K, PHt.mT, alpha=-1),
+               lambda: kernels.symmetric_downdate_ref(P, K, PHt))
+        emit(row)
+        rows[name] = row
+    emit({"phase": "kernel_downdate_forms",
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def _prefix(run, n, streams=False):
     """The first n frames of a staged run (of every stream of a run stacked
     over streams)."""
@@ -644,7 +796,7 @@ def phase_tsqr(run, calib, ref):
         calib_ext_p=calib.cam_p_IinC, calib_intr=calib.cam_intr)
     table = ft.init_table(cfg, meta["max_tracks"], "cuda")
     kernels.householder_qr_blocks.launches = 0
-    checks = []
+    checks, operands = [], None
     for k in range(max(TSQR_FRAMES) + 1):
         frame = runner.frame_at(run.frames, k)
         if k in TSQR_FRAMES:
@@ -655,6 +807,8 @@ def phase_tsqr(run, calib, ref):
             row.update(frame=k, n_slam=int(st.slam_valid.sum()))
             checks.append(row)
             emit({"phase": "tsqr_stack", **row})
+            if k == FORMS_CAPTURE_FRAME:
+                operands = _form_operands(st, cfg, H, res, state, frame)
         state, table, _ = manager.step_frame(state, table, cfg, opts, frame)
     torch.cuda.synchronize()
     launches = kernels.householder_qr_blocks.launches
@@ -670,7 +824,7 @@ def phase_tsqr(run, calib, ref):
         if not ok:
             raise AssertionError(f"TSQR check failed at frame {row['frame']}:"
                                  f" {row}")
-    return launches
+    return launches, operands
 
 
 def phase_oppoint_path(run, calib):
@@ -855,11 +1009,12 @@ def phase_v102_replay(staged, ref):
     return row
 
 
-def _ensemble_step_check(cfg, opts, calibs, runs, max_tracks):
+def _ensemble_step_check(cfg, opts, calibs, runs, max_tracks,
+                         tols=(1e-5, 5e-5), phase="ensemble8_step_check"):
     """The batch stepped to ENSEMBLE_CHECK_FRAME, then once more from its
     state; each stream against its own `step_frame` from the same state:
-    covariance within 1e-5·‖P‖∞ (5e-5 in a step that initializes a
-    landmark, the repo's SLAM rule), the window full."""
+    covariance within tols[0]·‖P‖∞ (tols[1] in a step that initializes a
+    landmark; 1e-5 and 5e-5 are the repo's SLAM rule), the window full."""
     from open_vins_tpu_torch.models import manager, runner
 
     state, table = runner.ensemble_start(cfg, calibs, runs, max_tracks)
@@ -877,13 +1032,12 @@ def _ensemble_step_check(cfg, opts, calibs, runs, max_tracks):
         norm = one.cov.abs().sum(dim=1).max().item()
         streams.append({
             "stream": b, "window_full": int(pre.n_clones) == cfg.max_clones,
-            "init_step": init, "tol": 5e-5 if init else 1e-5,
+            "init_step": init, "tol": tols[1] if init else tols[0],
             "cov_gap_rel_norm_inf":
                 (post.cov[b] - one.cov).abs().max().item() / norm,
             "p_gap_m": (post.p[b] - one.p).abs().max().item(),
             "n_slam": int(one.slam_valid.sum())})
-    emit({"phase": "ensemble8_step_check", "frame": ENSEMBLE_CHECK_FRAME,
-          "streams": streams})
+    emit({"phase": phase, "frame": ENSEMBLE_CHECK_FRAME, "streams": streams})
     for r in streams:
         if not (r["window_full"] and r["cov_gap_rel_norm_inf"] <= r["tol"]):
             raise AssertionError(f"ensemble step check failed: {r}")
@@ -967,6 +1121,171 @@ def phase_ensemble8(ref):
     if not ok:
         raise AssertionError("main_path_ensemble8: a gate failed")
     _ensemble_step_check(cfg, opts, calibs, runs, max_tracks)
+    return row, calibs, runs
+
+
+def phase_newton_zupt_ensemble(ref, calibs, runs):
+    """The vmapped step in the newton joint form with ZUPT (direct, the
+    default gates) on the ensemble's 8 streams for NEWTON_ZUPT_FRAMES
+    frames through `runner.run_ensemble`: every batched frame launches the
+    batched K ≠ PHt downdate twice (the ZUPT attempt's at m = 9, the newton
+    update's) and runs the masked polish sweeps; every covariance finite,
+    every newton residual under the no-op gate; then each stream against
+    its own single-stream step at ENSEMBLE_CHECK_FRAME (NEWTON_STEP_TOL,
+    NEWTON_INIT_STEP_TOL)."""
+    import torch
+
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.ops import kernels
+
+    meta = ref["meta"]
+    cfg = FilterConfig(**dict(meta["cfg"], joint_update_form="newton",
+                              use_zupt=True))
+    opts, n = tri.TriangulationOptions(), NEWTON_ZUPT_FRAMES
+    part = _prefix(runs, n, streams=True)
+    kernels.symmetric_downdate.launches = 0
+    kernels.householder_qr_blocks.launches = 0
+    t0 = time.perf_counter()
+    state, outs = runner.run_ensemble(cfg, opts, calibs, part,
+                                      max_tracks=meta["max_tracks"],
+                                      device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.symmetric_downdate.launches
+    diag = outs[4]
+    row = {"phase": "main_path_ensemble8_newton_zupt",
+           "streams": len(meta["seeds"]), "frames": n, "seconds": seconds,
+           "agg_frames_per_s": len(meta["seeds"]) * n / seconds,
+           "launches": {"symmetric_downdate": launches},
+           "finite": [bool(torch.isfinite(c).all()) for c in state.cov],
+           "newton_resid_max": float(diag.newton_resid.max()),
+           "n_slam_last": diag.n_slam[:, -1].tolist()}
+    emit(row)
+    if not (all(row["finite"]) and launches == 2 * n
+            and row["newton_resid_max"] < NEWTON_NOOP_TOL
+            and min(row["n_slam_last"]) > 0):
+        raise AssertionError("main_path_ensemble8_newton_zupt: a gate "
+                             "failed")
+    _ensemble_step_check(cfg, opts, calibs, runs, meta["max_tracks"],
+                         (NEWTON_STEP_TOL, NEWTON_INIT_STEP_TOL),
+                         "ensemble8_newton_zupt_step_check")
+    return row
+
+
+def _loop_gates(name, row, ref):
+    """The health gate and the JAX checks of a loop: finite covariance,
+    RMSE < 0.05 m and within 0.01 m of the JAX run, NEES in 0.2-30 and
+    within NEES_SPREAD of the JAX run's, landmarks in use."""
+    rmse, nees, jax_nees = row["rmse_m"], row["nees"], ref["ref_nees"]
+    ok = (row["finite"] and rmse < RMSE_GATE_M and 0.2 < nees < 30.0
+          and abs(rmse - ref["ref_rmse"]) <= REF_RMSE_SPREAD_M
+          and abs(nees - jax_nees) <= NEES_SPREAD * jax_nees
+          and row["n_slam_mean"] > 0)
+    if not ok:
+        raise AssertionError(f"{name}: a gate failed: {row}")
+
+
+def phase_forms_path(run, calib):
+    """The operating point in the woodbury, spd and newton joint forms
+    over the staged frames, each against the JAX run of its form: one
+    downdate launch per frame (K ≠ PHt), and the newton solve's residual
+    under its no-op gate on every frame."""
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+
+    rows = {}
+    for form, path in FORM_REFS.items():
+        ref = convert.load_reference(path)
+        meta = ref["meta"]
+        name = f"main_path_{form}"
+        row, outs, _ = _drive(name, FilterConfig(**meta["cfg"]), run, calib,
+                              ref, meta["max_tracks"])
+        row["jax_n_slam_mean"] = float(ref["ref_n_slam"].mean())
+        if form == "newton":
+            row["newton_resid_max"] = float(outs[4].newton_resid.max())
+            row["jax_newton_resid_max"] = float(
+                ref["ref_newton_resid"].max())
+        emit(row)
+        _loop_gates(name, row, ref)
+        if row["launches"]["symmetric_downdate"] != row["frames"]:
+            raise AssertionError(f"{name}: one downdate per frame expected")
+        if form == "newton" and not (row["newton_resid_max"]
+                                     < NEWTON_NOOP_TOL):
+            raise AssertionError("main_path_newton: the solve's residual "
+                                 "reached the no-op gate")
+        rows[form] = row
+    return rows
+
+
+def phase_sequential_path(run, calib):
+    """The operating point in the reference-exact sequential ordering
+    (MSCKF update, SLAM update, delayed init with its leftover update, each
+    its own downdate) against the JAX run of the same ordering."""
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+
+    ref = convert.load_reference(SEQUENTIAL_REF)
+    meta = ref["meta"]
+    row, _, _ = _drive("main_path_sequential", FilterConfig(**meta["cfg"]),
+                       run, calib, ref, meta["max_tracks"])
+    row["downdates_per_frame"] = (row["launches"]["symmetric_downdate"]
+                                  / row["frames"])
+    emit(row)
+    _loop_gates("main_path_sequential", row, ref)
+    if row["launches"]["symmetric_downdate"] < 2 * row["frames"]:
+        raise AssertionError("main_path_sequential: the MSCKF and the SLAM "
+                             "update must each launch a downdate per frame")
+    return row
+
+
+def _zupt_frames(diag):
+    """Frames consumed by a ZUPT from ZUPT_FIRST_FRAME on: no MSCKF
+    feature and no landmark used (tests/test_slam_stack.py:120-124)."""
+    n_msckf = diag.n_msckf[ZUPT_FIRST_FRAME:]
+    used = diag.n_slam_used[ZUPT_FIRST_FRAME:]
+    return int(((n_msckf == 0) & (used == 0)).sum())
+
+
+def phase_zupt_path(ref):
+    """The operating point's widths with ZUPT over 20 s of the stop-and-go
+    trajectory: staged on the card by the port's simulator (held against
+    the CPU staging's digest), then the closed loop against the JAX run on
+    the CPU staging, with at least ZUPT_MIN_FRAMES ZUPT frames and a count
+    within ZUPT_COUNT_SPREAD of the JAX run's."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import runner
+
+    meta = ref["meta"]
+    sim_kw = meta["sim"]
+    traj = tuple(torch.as_tensor(a, device="cuda")
+                 for a in stop_and_go_trajectory(
+                     sim_kw["duration"] + 2.0 * sim_kw["start_offset"] + 2.0,
+                     **meta["traj"]["stop_and_go"]))
+    t0 = time.perf_counter()
+    sim, params, run = convert.stage_stream(meta, "cuda", traj=traj)
+    torch.cuda.synchronize()
+    _check_staging("zupt_stopgo", time.perf_counter() - t0, params, run,
+                   _digest_of(ref), lambda: sim)
+    row, outs, _ = _drive("main_path_zupt", FilterConfig(**meta["cfg"]), run,
+                          runner.sim_calib(sim), ref, meta["max_tracks"])
+    diag = outs[4]
+    jax_n = int(((np.asarray(ref["ref_n_msckf"])[ZUPT_FIRST_FRAME:] == 0)
+                 & (np.asarray(ref["ref_n_slam_used"])[ZUPT_FIRST_FRAME:]
+                    == 0)).sum())
+    row.update(zupt_frames=_zupt_frames(diag), jax_zupt_frames=jax_n,
+               jax_n_slam_mean=float(ref["ref_n_slam"].mean()))
+    emit(row)
+    _loop_gates("main_path_zupt", row, ref)
+    if not (row["zupt_frames"] >= ZUPT_MIN_FRAMES
+            and abs(row["zupt_frames"] - jax_n) <= ZUPT_COUNT_SPREAD * jax_n):
+        raise AssertionError(f"main_path_zupt: {row['zupt_frames']} ZUPT "
+                             f"frames against JAX's {jax_n}")
     return row
 
 
@@ -995,15 +1314,21 @@ def main():
     qr_rows = phase_qr()
     run, calib, ref = convert.load_staged_run(FIXTURE, device="cuda")
     phase_msckf_path(run, calib, ref)
-    tsqr_launches = phase_tsqr(run, calib, convert.load_reference(
+    tsqr_launches, operands = phase_tsqr(run, calib, convert.load_reference(
         OPPOINT_REF))
+    kf_rows = phase_downdate_forms(operands)
     op_row = phase_oppoint_path(run, calib)
+    form_rows = phase_forms_path(run, calib)
+    seq_row = phase_sequential_path(run, calib)
+    zupt_row = phase_zupt_path(convert.load_reference(ZUPT_REF))
     refs = {"largemap": convert.load_reference(LARGEMAP_REF),
             "v102_replay": convert.load_reference(V102_REF)}
     staged = phase_sim_staging(refs)
     lm_row = phase_largemap(staged["largemap"], refs["largemap"])
     rp_row = phase_v102_replay(staged["v102_replay"], refs["v102_replay"])
-    en_row = phase_ensemble8(convert.load_reference(ENSEMBLE_REF))
+    en_ref = convert.load_reference(ENSEMBLE_REF)
+    en_row, calibs, runs = phase_ensemble8(en_ref)
+    nz_row = phase_newton_zupt_ensemble(en_ref, calibs, runs)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
@@ -1017,7 +1342,16 @@ def main():
         "launches_largemap": lm_row["launches"]["symmetric_downdate"],
         "launches_v102_replay": rp_row["launches"]["symmetric_downdate"],
         "launches_ensemble8": en_row["launches"]["symmetric_downdate"],
+        **{f"launches_{form}": r["launches"]["symmetric_downdate"]
+           for form, r in form_rows.items()},
+        "launches_sequential": seq_row["launches"]["symmetric_downdate"],
+        "launches_zupt": zupt_row["launches"]["symmetric_downdate"],
+        "launches_ensemble8_newton_zupt":
+            nz_row["launches"]["symmetric_downdate"],
         **_kernel_numbers(dd),
+        "k_not_pht": [{"operands": name, "shape": [r["D"], r["m"]],
+                       "library": "torch.addmm", **_kernel_numbers(r)}
+                      for name, r in kf_rows.items()],
         "batched": [{"shape": list(k[:3]), "K_is_PHt": True,
                      "library": "torch.baddbmm",
                      **_kernel_numbers(bd_rows[k])}

@@ -143,16 +143,16 @@ def load_staged_run(path, device=None):
     return run, calib, load_reference(path)
 
 
-def stage_stream(meta, device=None):
+def stage_stream(meta, device=None, traj=None):
     """(sim, params, run): the port's simulator built from `meta` (a
     reference file's configuration: `sim` holds the SimParams fields,
     `seed` the draw seed, `traj` None for the sine trajectory or
     {"file": path relative to the repository root, "n_ctrl", "dt"} for a
-    padded trajectory file) and its whole stream staged on `device`."""
+    padded trajectory file) and its whole stream staged on `device`.  A
+    given `traj` (times, R_ItoG, p) is used instead of `meta["traj"]`."""
     dev = resolve_device(device)
     params = simulator.SimParams(**meta["sim"])
-    traj = None
-    if meta.get("traj"):
+    if traj is None and meta.get("traj"):
         spec = meta["traj"]
         traj, _ = trajectories.load_trajectory_padded(
             os.path.join(ROOT, spec["file"]), spec["n_ctrl"], dt=spec["dt"],

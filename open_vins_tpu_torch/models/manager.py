@@ -1,26 +1,35 @@
 """Per-frame VIO orchestration (the VioManager step).
 
-Counterpart of `open_vins_tpu/models/manager.py` for `use_zupt=False`
-(VioManager.cpp:256-714).  One frame: marginalize the oldest
-clone when the ring is full, propagate and clone, ingest the frame's tracks
-and reserve SLAM promotions, then the vision update:
+Counterpart of `open_vins_tpu/models/manager.py` (VioManager.cpp:256-714).
+One frame: with `use_zupt`, a zero-velocity update attempt that, when
+accepted, consumes the frame without a clone (`updater_zupt`); otherwise
+marginalize the oldest clone when the ring is full, propagate and clone,
+ingest the frame's tracks and reserve SLAM promotions, then the vision
+update:
 
   * `max_slam=0` (OpenVINS's pure-MSCKF mode): triage, triangulate,
     linearize, nullspace-project, χ²-gate, compress and apply one EKF
     update;
-  * `max_slam>0` with the joint `"qr"` form (the bench's operating point):
-    the MSCKF rows, the SLAM-landmark rows and the delayed-init leftover rows
-    are linearized at the pre-update state, whitened, stacked, compressed
-    once on the SLAM column support and applied as one EKF update, after
-    which dead landmarks are evicted.
+  * `max_slam>0` with the joint update (the default, the bench's operating
+    point): the MSCKF rows, the SLAM-landmark rows and the delayed-init
+    leftover rows are linearized at the pre-update state, whitened, stacked
+    and applied as one EKF update in cfg.joint_update_form — "qr"
+    (compressed once on the SLAM column support), "woodbury", "spd" or
+    "newton" (the push-through forms of `core.ekf`) — after which dead
+    landmarks are evicted;
+  * `joint_vision_update=False` or `fast_compress` (the reference-exact
+    sequential ordering): the MSCKF update, then the SLAM update, then
+    delayed init with its own update of the leftover rows, then eviction.
 
 The steps are separate functions (`marginalize_oldest`, `propagate_clone`,
-`ingest`, `reserve_promotions`, `build_joint_system`, `joint_update`) that
-`step_frame` chains.  Everything stays on the device except one flag per
-frame: whether the delayed-init block has work (see
-`updater_slam.delayed_init`).  The sequential SLAM ordering, the other joint
-forms (`woodbury`, `spd`, `newton`), `fast_compress` and ZUPT raise
-NotImplementedError.
+`ingest`, `reserve_promotions`, `build_joint_system`, `joint_update`,
+`sequential_update`) that `step_frame` chains.  Everything stays on the
+device except, per frame, one read of the ZUPT decision (`ZUPT_FLAG_READ`)
+and one of whether delayed init has work (see
+`updater_slam.delayed_init`); with `batched=True` (the step under
+`torch.func.vmap`) both branches run and each stream selects on the device.
+The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE representation and aruco landmarks
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,9 +46,13 @@ from open_vins_tpu_torch.models import feature_table as ft
 from open_vins_tpu_torch.models import triangulation as tri
 from open_vins_tpu_torch.models import update_helper as uh
 from open_vins_tpu_torch.models import updater_slam as slam
+from open_vins_tpu_torch.models import updater_zupt as zupt
 from open_vins_tpu_torch.models.feature_table import select_candidates
 from open_vins_tpu_torch.models.propagator import ImuWindow, propagate
 from open_vins_tpu_torch.ops import lie
+
+# profiler range around the step's one host read of the ZUPT decision
+ZUPT_FLAG_READ = "zupt.flag_read"
 
 
 @dataclasses.dataclass
@@ -116,10 +129,9 @@ def msckf_build(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
     (UpdaterMSCKF::update up to the EKFUpdate, UpdaterMSCKF.cpp:58-295,
     plus the triage of VioManager.cpp:366-500).  `reserved` ([T] bool):
     rows reserved for SLAM promotion, excluded here.  `compress=False`
-    returns the raw stacked rows (the joint update compresses once).
-    Returns (H_c, res_c, ranges, table, diag)."""
-    if cfg.fast_compress:
-        raise NotImplementedError("fast_compress is not ported yet")
+    returns the raw stacked rows (the joint update compresses once);
+    `fast_compress` compresses by the normal equations over all D columns
+    (ranges None).  Returns (H_c, res_c, ranges, table, diag)."""
     F = cfg.max_msckf_in_update
     D = cfg.state_dim
     sigma = cfg.sigma_pix
@@ -168,10 +180,13 @@ def msckf_build(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
     res_big = torch.where(keep[..., 0], res_proj, 0.0).reshape(-1)
 
     ranges = cfg.cam_meas_support_ranges
-    if compress:
-        H_c, res_c = uh.compress_system_ranges(H_big, res_big, ranges, D)
-    else:
+    if not compress:
         H_c, res_c = H_big, res_big
+    elif cfg.fast_compress:
+        H_c, res_c = uh.compress_system_cholesky(H_big, res_big, D)
+        ranges = None
+    else:
+        H_c, res_c = uh.compress_system_ranges(H_big, res_big, ranges, D)
 
     # cleanup: every selected row dies whether or not its update passed
     # (UpdaterMSCKF.cpp:108-116); lost rows that can never triangulate and
@@ -199,12 +214,12 @@ def msckf_build(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
 
 
 def msckf_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
-                 tri_opts: tri.TriangulationOptions):
+                 tri_opts: tri.TriangulationOptions, reserved=None):
     """msckf_build + the EKF update (the sequential path).  With no rows
     accepted the update is an exact no-op (K = P·0).
     Returns (state, table, diag)."""
     H_c, res_c, ranges, table, diag = msckf_build(state, cfg, table,
-                                                  tri_opts)
+                                                  tri_opts, reserved)
     r_diag = torch.full((H_c.shape[0],), cfg.sigma_pix**2, dtype=H_c.dtype,
                         device=H_c.device)
     state = ekf.ekf_update(state, cfg, H_c, res_c, r_diag, ranges=ranges)
@@ -212,17 +227,8 @@ def msckf_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
 
 
 def _require_ported(cfg: FilterConfig) -> None:
-    if cfg.use_zupt:
-        raise NotImplementedError(
-            "ZUPT (use_zupt=True) is not ported yet (ROADMAP queue 1)")
-    if cfg.max_slam > 0 and not cfg.joint_vision_update:
-        raise NotImplementedError(
-            "the sequential SLAM ordering (joint_vision_update=False) is not "
-            "ported yet (ROADMAP queue 1)")
-    if cfg.max_slam > 0 and cfg.joint_update_form != "qr":
-        raise NotImplementedError(
-            f"the joint update form {cfg.joint_update_form!r} is not ported "
-            "yet (ROADMAP queue 1); the port runs 'qr'")
+    """Raise for what the port does not have yet: the 1-dof single-depth
+    landmark representation and aruco landmarks."""
     if cfg.max_slam > 0:
         slam.require_ported(cfg)
 
@@ -298,33 +304,121 @@ def build_joint_system(state: VioState, cfg: FilterConfig,
 
 def joint_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
                  H, res, diag: StepDiag, n_used):
-    """Compress the whitened joint stack on the SLAM column support
-    (CholeskyQR2), apply one EKF update, evict dead landmarks."""
+    """Apply the whitened joint stack as one EKF update on the SLAM column
+    support in cfg.joint_update_form (manager.py:355-380 of the
+    reference), evict dead landmarks:
+
+      * "qr": compressed by CholeskyQR2, then the one-sweep update;
+      * "woodbury": the push-through form, one LU (`ekf.ekf_update_info`);
+      * "spd": the push-through form by two Choleskys (`ekf.ekf_update_spd`);
+      * "newton": the push-through form by Newton inversion
+        (`ekf.ekf_update_newton`), its solve residual in
+        `diag.newton_resid`;
+
+    any other value takes "qr", as in the reference."""
     ranges = cfg.slam_meas_support_ranges
-    H, res = uh.compress_system_ranges(H, res, ranges, cfg.state_dim)
-    r_diag = torch.ones((H.shape[0],), dtype=H.dtype, device=H.device)
-    state = ekf.ekf_update(state, cfg, H, res, r_diag, ranges=ranges)
+    form = cfg.joint_update_form
+    if form == "woodbury":
+        state = ekf.ekf_update_info(state, cfg, H, res, ranges)
+    elif form == "spd":
+        state = ekf.ekf_update_spd(state, cfg, H, res, ranges)
+    elif form == "newton":
+        state, nres = ekf.ekf_update_newton(state, cfg, H, res, ranges,
+                                            return_resid=True)
+        diag = diag.replace(newton_resid=nres)
+    else:
+        H, res = uh.compress_system_ranges(H, res, ranges, cfg.state_dim)
+        r_diag = torch.ones((H.shape[0],), dtype=H.dtype, device=H.device)
+        state = ekf.ekf_update(state, cfg, H, res, r_diag, ranges=ranges)
     state, table = slam.evict(state, cfg, table)
     diag = diag.replace(n_slam=state.slam_valid.sum(dtype=torch.int32),
                         n_slam_used=n_used)
     return state, table, diag
 
 
-def step_frame(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
-               tri_opts: tri.TriangulationOptions, frame: FrameInput,
-               batched: bool = False):
-    """One frame: steps 1-4 (`pre_update`), then the MSCKF update alone
-    (max_slam=0) or the joint update.  Returns (state, table, diag).
+def sequential_update(state: VioState, cfg: FilterConfig,
+                      table: ft.FeatureTable,
+                      tri_opts: tri.TriangulationOptions, reserved,
+                      batched: bool = False):
+    """The reference-exact ordering (manager.py:382-394 of the reference):
+    the MSCKF update, then the SLAM-landmark update, then delayed init with
+    the update of its leftover rows, each consuming its measurements from
+    the table, then eviction.  Returns (state, table, diag)."""
+    state, table, diag = msckf_update(state, cfg, table, tri_opts, reserved)
+    if cfg.max_slam == 0:
+        return state, table, diag
+    state, table, _, n_used = slam.update(state, cfg, table)
+    state, table, _ = slam.delayed_init(state, cfg, table, tri_opts,
+                                        gather_feature_obs, batched=batched,
+                                        collect=False)
+    state, table = slam.evict(state, cfg, table)
+    diag = diag.replace(n_slam=state.slam_valid.sum(dtype=torch.int32),
+                        n_slam_used=n_used)
+    return state, table, diag
 
-    `batched=True` when the caller vmaps the step over streams
-    (`runner.run_ensemble`): delayed init then selects its result per
-    stream on the device instead of reading its flag on the host."""
+
+def _step_core(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
+               tri_opts: tri.TriangulationOptions, frame: FrameInput,
+               batched: bool):
+    """The frame without ZUPT: steps 1-4, then the vision update."""
     state, table, reserved = pre_update(state, table, cfg, frame)
     if cfg.max_slam == 0:
         return msckf_update(state, cfg, table, tri_opts)
+    if not cfg.joint_vision_update or cfg.fast_compress:
+        return sequential_update(state, cfg, table, tri_opts, reserved,
+                                 batched)
     state, table, H, res, diag, n_used = build_joint_system(
         state, cfg, table, tri_opts, reserved, batched=batched)
     return joint_update(state, cfg, table, H, res, diag, n_used)
+
+
+def zupt_attempt(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
+                 frame: FrameInput):
+    """The frame's zero-velocity update attempt (manager.py:277-296 of the
+    reference): (state after an accepted ZUPT, the diag of a ZUPT frame,
+    accepted)."""
+    disparity = zupt.frame_disparity(table, cfg, state.head, frame.ids,
+                                     frame.uv, frame.mask)
+    fn = zupt.try_zupt_explicit if cfg.zupt_explicit_motion else zupt.try_zupt
+    z_state, accepted = fn(state, cfg, frame.win, frame.t_new, disparity)
+    zero_i = torch.zeros((), dtype=torch.int32, device=state.cov.device)
+    zero_f = torch.zeros((), dtype=state.cov.dtype, device=state.cov.device)
+    z_diag = StepDiag(n_msckf=zero_i,
+                      n_tracks=(table.ids >= 0).sum(dtype=torch.int32),
+                      chi2_mean=zero_f,
+                      n_slam=z_state.slam_valid.sum(dtype=torch.int32),
+                      n_slam_used=zero_i, newton_resid=zero_f)
+    return z_state, z_diag, accepted
+
+
+def step_frame(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
+               tri_opts: tri.TriangulationOptions, frame: FrameInput,
+               batched: bool = False):
+    """One frame (the module docstring).  Returns (state, table, diag).
+
+    With `use_zupt` the ZUPT attempt runs first.  The reference chooses
+    between the ZUPT frame and the normal frame by a `lax.cond`; here the
+    decision is one host read of `accepted` (under the `ZUPT_FLAG_READ`
+    profiler range) and only the taken branch runs.  Rejected, the normal
+    frame starts from the input state, as the reference's does.
+
+    `batched=True` when the caller vmaps the step over streams
+    (`runner.run_ensemble`): both branches run and each stream selects by
+    its own flag on the device, and delayed init likewise selects its
+    result per stream instead of reading its flag on the host."""
+    _require_ported(cfg)
+    if not cfg.use_zupt:
+        return _step_core(state, table, cfg, tri_opts, frame, batched)
+    z_state, z_diag, accepted = zupt_attempt(state, table, cfg, frame)
+    if batched:
+        st, tb, diag = _step_core(state, table, cfg, tri_opts, frame, True)
+        return (select(accepted, z_state, st), select(accepted, table, tb),
+                select(accepted, z_diag, diag))
+    with torch.profiler.record_function(ZUPT_FLAG_READ):
+        accepted = bool(accepted)
+    if accepted:
+        return z_state, table, z_diag
+    return _step_core(state, table, cfg, tri_opts, frame, batched)
 
 
 def initialize_from_gt(cfg: FilterConfig, q, p, v, bg, ba, t,

@@ -3,11 +3,12 @@
 
 Counterpart of `open_vins_tpu/models/update_helper.py` (UpdaterHelper
 parity, UpdaterHelper.cpp:192-487), batched over the F features of an update
-with a leading feature dimension instead of a vmap.  The single-feature
-`feature_jacobian` is not needed: the SLAM updater calls
-`feature_jacobian_batch` with one row per landmark and per-landmark FEJ
-points.  `compress_system` (the Householder TSQR) runs its row blocks
-through the hand-written `householder_qr_blocks` kernel on CUDA.
+with a leading feature dimension instead of a vmap; `feature_jacobian` is
+the single-feature case (the sequential landmark init's).
+`compress_system` (the Householder TSQR) runs its row blocks through the
+hand-written `householder_qr_blocks` kernel on CUDA;
+`compress_system_ranges` (CholeskyQR2) is the filter's compression and
+`compress_system_cholesky` the normal-equation one of `fast_compress`.
 """
 
 from __future__ import annotations
@@ -163,6 +164,21 @@ def feature_jacobian_batch(state: VioState, cfg: FilterConfig,
     return H_x, H_f, res_out, row_mask
 
 
+def feature_jacobian(state: VioState, cfg: FilterConfig, obs: GatheredObs,
+                     p_f, p_f_fej, ctx: ObsContext | None = None):
+    """The stacked system of one feature: `obs` over [O] observations,
+    p_f / p_f_fej [3] (get_feature_jacobian_full parity,
+    update_helper.py:93-212 of the reference), with the context built from
+    `state` unless given.  Returns (H_x [2O, D], H_f [2O, 3], res [2O],
+    row_mask [2O])."""
+    if ctx is None:
+        ctx = obs_context(state, cfg, obs.clone_slot, obs.cam)
+    one = GatheredObs(*(v[None] for _, v in obs.items()))
+    out = feature_jacobian_batch(state, cfg, one, p_f[None], p_f_fej[None],
+                                 ctx)
+    return tuple(a[0] for a in out)
+
+
 def householder_rotate(H_f, M):
     """Apply Qᵀ — the complete-QR orthogonal factor of H_f [..., m, k] — to
     H_f and M [..., m, n] by k unrolled Householder reflectors.
@@ -289,15 +305,45 @@ def compress_system_ranges(H, res, ranges, D):
     return scatter_cols(Hc_s, ranges, D), res_c
 
 
+def compress_system_cholesky(H, res, out_rows):
+    """Normal-equation compression (update_helper.py:380-409 of the
+    reference, the `fast_compress` option): H_c = chol(HᵀH + jI)ᵀ and
+    res_c = L⁻¹Hᵀres with the jitter j = 1e-6·(tr(HᵀH)/D + 1), padded with
+    zero rows to `out_rows` ≥ D.  A failed factorization gives non-finite
+    rows, as the reference's does.
+
+    The jitter puts the Gram matrix's condition at the edge of f32 (about
+    3e7 on a SLAM frame with one MSCKF feature), where one library's f32
+    Cholesky breaks down and another's does not: torch's does on Gram
+    matrices that the reference's LAPACK factors.  So the Gram matrix is
+    formed in f32, as in the reference, and factored in f64; H_c and res_c
+    are f32.  Any factor with H_cᵀH_c = HᵀH + jI gives the same update."""
+    D = H.shape[1]
+    G = H.T @ H
+    jitter = 1e-6 * (torch.trace(G) / D + 1.0)
+    L, info = torch.linalg.cholesky_ex(
+        (G + jitter * torch.eye(D, dtype=H.dtype, device=H.device)).double())
+    L = torch.where(info == 0, L.to(H.dtype), torch.nan)
+    res_c = torch.linalg.solve_triangular(L, (H.T @ res)[:, None],
+                                          upper=False)[:, 0]
+    pad = out_rows - D
+    return (torch.cat([L.T, H.new_zeros((pad, D))]),
+            torch.cat([res_c, H.new_zeros((pad,))]))
+
+
 def chi2_statistic(state_cov, H, res, sigma):
     """γ = resᵀ (H P Hᵀ + σ²I)⁻¹ res per feature (UpdaterMSCKF chi2 gate,
     UpdaterMSCKF.cpp:208-234).  H [..., m, k], res [..., m], state_cov
     [k, k].  Systems with m <= 32 rows go through the unrolled-Cholesky
-    quadratic form, as in the reference."""
+    quadratic form, as in the reference; larger ones through `solve_ex`,
+    where a singular S gives γ = NaN (the reference's solve gives
+    non-finite values) and the callers' `isfinite(γ)` gates drop the
+    candidate."""
     m = H.shape[-2]
     eye = torch.eye(m, dtype=H.dtype, device=H.device)
     S = H @ state_cov @ H.mT + sigma**2 * eye
     if m <= 32:
         return smallmat.chi2_quadform(S, res)
-    sol = torch.linalg.solve(S, res[..., None])[..., 0]
-    return torch.sum(res * sol, dim=-1)
+    sol, info = torch.linalg.solve_ex(S, res[..., None])
+    gamma = torch.sum(res * sol[..., 0], dim=-1)
+    return torch.where(info == 0, gamma, torch.nan)

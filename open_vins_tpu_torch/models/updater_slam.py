@@ -1,5 +1,6 @@
 """SLAM landmark pipeline: delayed initialization, the landmark update,
-eviction and re-anchoring, for the joint per-frame vision update.
+eviction and re-anchoring, in the joint per-frame vision update and in the
+reference-exact sequential ordering.
 
 Counterpart of `open_vins_tpu/models/updater_slam.py` (UpdaterSLAM parity,
 UpdaterSLAM.cpp:58-647):
@@ -8,10 +9,13 @@ UpdaterSLAM.cpp:58-647):
     frame (VioManager.cpp:410-453 triage);
   * `build_update`: every in-state landmark's unconsumed measurements of the
     newest `slam_stack_clones` clones, χ²-gated, stacked — no state update;
-    the consumed measurements are cleared from the table;
+    the consumed measurements are cleared from the table; `update` applies
+    that stack by its own EKF update (the sequential ordering);
   * `delayed_init`: up to MAX_INIT_PER_FRAME mature tracks triangulated and
     inserted into free landmark slots jointly, with the leftover rows
-    returned for the joint update (the reference's `collect=True` form);
+    returned for the joint update (`collect=True`) or applied by their own
+    EKF update (`collect=False`); `_delayed_init_sequential` is the
+    one-at-a-time loop that is its oracle;
   * `evict`: landmarks whose track died or that keep failing the gate are
     dropped (their covariance rows and columns zeroed);
   * `change_anchors`: landmarks anchored on the clone about to be
@@ -21,12 +25,10 @@ The stored λ follows cfg.feat_rep_slam (`landmark_rep`): GLOBAL_3D,
 GLOBAL_FULL_INVERSE_DEPTH, ANCHORED_3D, ANCHORED_FULL_INVERSE_DEPTH or
 ANCHORED_MSCKF_INVERSE_DEPTH.  Rows are linearized in the global point and
 chained to λ, and for the anchored representations to the anchor clone's
-columns (`_chain_anchored`).  The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE, aruco
-landmarks, the reference-exact sequential ordering (`update`,
-`_delayed_init_sequential`) and `ekf.initialize_landmark` /
-`marginalize_slam_slot` are not ported yet: `require_ported` raises for
-them.  Lookups use plain indexing; the one-hot contractions of the
-reference are TPU workarounds.
+columns (`_chain_anchored`).  The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE and
+aruco landmarks are not ported yet: `require_ported` raises for them.
+Lookups use plain indexing; writes at slots that are device values use
+selects and one-hots, so every function runs under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -187,19 +189,25 @@ def promotion_candidates(state: VioState, cfg: FilterConfig,
     return _mark_rows(T, rows, take)
 
 
+_DELAYED_INIT_JOINT = True  # joint batched init; the sequential loop is
+# its oracle (tests/test_torch_sequential.py)
+
+
 def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
                  tri_opts: tri.TriangulationOptions, gather_fn,
-                 batched: bool = False):
+                 batched: bool = False, collect: bool = True):
     """Promote up to MAX_INIT_PER_FRAME mature tracks into free SLAM slots
     by the joint batched delayed initialization (StateHelper::initialize
     parity, UpdaterSLAM.cpp:100-240): the landmarks enter the covariance
-    here; their leftover measurement rows are returned for the joint EKF
-    update (the reference's `collect=True`).
+    here.  With `collect` (the joint per-frame update) their leftover
+    measurement rows are returned for the joint EKF update; without it
+    (the sequential ordering) they are applied here by their own EKF
+    update on the camera support, as the reference's `collect=False` does.
 
     gather_fn(state, cfg, table, rows) -> (tri_obs, gobs) is the manager's
-    `gather_feature_obs`.  Returns (state, table, n_init,
-    H_up [F·(2·C·N−3), D], res_up) with row noise cfg.sigma_pix_slam (zero
-    rows when nothing was initialized).
+    `gather_feature_obs`.  Returns (state, table, n_init), and with
+    `collect` also (H_up [F·(2·C·N−3), D], res_up) with row noise
+    cfg.sigma_pix_slam (zero rows when nothing was initialized).
 
     The reference skips the init block behind a `lax.cond`; here the
     decision is one read of a device flag on the host per frame (`if`),
@@ -207,16 +215,24 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     vmapped over streams, where `lax.cond` under `jax.vmap` becomes a
     select): the block always runs and each stream takes its result or
     "nothing" by its own flag, on the device (`state.select`; a non-finite
-    value of the unselected branch is dropped by the select)."""
+    value of the unselected branch is dropped by the select).  With
+    `_DELAYED_INIT_JOINT = False` the sequential oracle
+    (`_delayed_init_sequential`) runs instead (not with `collect`)."""
     require_ported(cfg)
+    if not _DELAYED_INIT_JOINT:
+        if collect:
+            raise ValueError("collect requires the joint batched init")
+        return _delayed_init_sequential(state, cfg, table, tri_opts,
+                                        gather_fn, batched)
     F = MAX_INIT_PER_FRAME
     D = cfg.state_dim
     dt, dev = state.cov.dtype, state.cov.device
     up_rows = F * (2 * cfg.max_clones * cfg.num_cams - 3)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    nothing = (state, table, zero_i, torch.zeros((up_rows, D), dtype=dt,
-                                                 device=dev),
-               torch.zeros((up_rows,), dtype=dt, device=dev))
+    nothing = (state, table, zero_i)
+    if collect:
+        nothing += (torch.zeros((up_rows, D), dtype=dt, device=dev),
+                    torch.zeros((up_rows,), dtype=dt, device=dev))
     if cfg.max_slam == 0:
         return nothing
 
@@ -226,7 +242,7 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     any_work = torch.any(cand_ok) & (n_free > 0)
     if batched:
         work = _delayed_init_work(state, cfg, table, tri_opts, gather_fn,
-                                  rows, cand_ok)
+                                  rows, cand_ok, collect)
         return (select(any_work, work[0], state),
                 select(any_work, work[1], table),
                 *(torch.where(any_work, w, z)
@@ -236,7 +252,113 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     if not any_work:
         return nothing
     return _delayed_init_work(state, cfg, table, tri_opts, gather_fn, rows,
-                              cand_ok)
+                              cand_ok, collect)
+
+
+def _delayed_init_sequential(state: VioState, cfg: FilterConfig,
+                             table: FeatureTable,
+                             tri_opts: tri.TriangulationOptions, gather_fn,
+                             batched: bool = False):
+    """One landmark at a time (updater_slam.py:185-371 of the reference,
+    the literal analog of the reference's per-feature
+    StateHelper::initialize loop): each attempted candidate is linearized
+    at the state its predecessors left (`feature_jacobian`), inserted by
+    `ekf.initialize_landmark`, χ²-gated on its leftover rows against the
+    running covariance and, if accepted, its leftover rows applied by their
+    own EKF update.  The oracle of the joint `delayed_init`, which gives
+    the same posterior because independent linear-Gaussian updates commute.
+    The loop runs when there is work: read on the host, or with `batched`
+    run always and selected per stream on the device.
+    Returns (state, table, n_init)."""
+    L = cfg.max_slam
+    F = MAX_INIT_PER_FRAME
+    sigma = cfg.sigma_pix_slam
+    dev = state.cov.device
+    score, n_free = _init_scores(state, cfg, table)
+    rows = ft.select_candidates(score, F)
+    cand_ok = score[rows] > 0
+    gobs, p_f, tri_ok, feat_ids, free_order, attempted = _init_candidates(
+        state, cfg, table, tri_opts, gather_fn, rows, cand_ok)
+    slot_ids = torch.arange(L, device=dev)
+
+    def body(i, st, n_done):
+        ok = attempted[i] & tri_ok[i]
+        slot = free_order[torch.clamp(n_done, 0, L - 1)]
+        obs_i = uh.GatheredObs(*(v[i] for _, v in gobs.items()))
+        # the context is rebuilt from the running state: candidate i+1 is
+        # linearized at candidate i's posterior, as in the reference
+        H_x, H_fg, res, row_mask = uh.feature_jacobian(st, cfg, obs_i,
+                                                       p_f[i], p_f[i])
+        H_x, H_lam, lam0 = (a[0] for a in _init_to_lam(
+            st, cfg, H_x[None], H_fg[None], p_f[i][None]))
+        st2, H_up, res_up, up_mask = ekf.initialize_landmark(
+            st, cfg, slot, feat_ids[i], lam0, H_x, H_lam, res, sigma,
+            row_mask)
+        at = slot_ids == slot
+        st2 = st2.replace(
+            slam_anchor_slot=torch.where(at, st.head.to(torch.int32),
+                                         st2.slam_anchor_slot),
+            slam_anchor_cam=torch.where(at, 0, st2.slam_anchor_cam))
+        # χ² gate on the leftover rows (the running covariance); dof = the
+        # valid measurement rows minus the landmark's 3
+        gamma = uh.chi2_statistic(st.cov, H_up, res_up, sigma)
+        dof = torch.clamp(row_mask.sum(dtype=torch.int32) - 3, min=1)
+        ok = (ok & torch.isfinite(gamma)
+              & (gamma < ekf.chi2_gate(dof) * cfg.chi2_multiplier_slam))
+        r_diag = torch.where(up_mask, sigma ** 2, 1.0)
+        st3 = ekf.ekf_update(st2, cfg, H_up, res_up, r_diag)
+        return select(ok, st3, st), n_done + ok.to(torch.int32)
+
+    def run_inits(st):
+        n_done = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(F):
+            st, n_done = body(i, st, n_done)
+        return st, n_done
+
+    any_work = torch.any(cand_ok & tri_ok) & (n_free > 0)
+    n_init = torch.zeros((), dtype=torch.int32, device=dev)
+    if batched:
+        st_run, n_run = run_inits(state)
+        state = select(any_work, st_run, state)
+        n_init = torch.where(any_work, n_run, n_init)
+    else:
+        with torch.profiler.record_function(INIT_FLAG_READ):
+            any_work = bool(any_work)
+        if any_work:
+            state, n_init = run_inits(state)
+    # consume the measurements of every attempted candidate, success or
+    # failure (to_delete on processed features, UpdaterSLAM.cpp:139-147, 237)
+    table = ft.clear_rows(table, _mark_rows(table.ids.shape[0], rows,
+                                            attempted))
+    return state, table, n_init
+
+
+def _init_candidates(state: VioState, cfg: FilterConfig, table: FeatureTable,
+                     tri_opts: tri.TriangulationOptions, gather_fn, rows,
+                     cand_ok):
+    """What both delayed inits start from, for the candidate rows [F]:
+    (gobs, p_f [F, 3] (non-finite or failed triangulations replaced by
+    [0, 0, 1]), tri_ok, feat_ids, free_order (free landmark slots first,
+    then L), attempted (the first free-capacity-many candidates; failures
+    among them are consumed too))."""
+    L = cfg.max_slam
+    T = table.ids.shape[0]
+    dtype, dev = state.cov.dtype, state.cov.device
+    tri_obs, gobs = gather_fn(state, cfg, table, rows)
+    p_f, tri_ok = tri.triangulate_batch(tri_obs, tri_opts)
+    tri_ok = tri_ok & torch.isfinite(p_f).all(dim=-1)
+    p_f = torch.where(tri_ok[:, None], p_f,
+                      torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
+    feat_ids = torch.where(rows < T, table.ids[torch.clamp(rows, max=T - 1)],
+                           -1)
+    free_order = torch.sort(torch.where(
+        ~state.slam_valid, torch.arange(L, device=dev), L)).values
+    # the attempt budget (feats_slam is sized to the open slots,
+    # VioManager.cpp:410-453)
+    n_free = (~state.slam_valid).sum(dtype=torch.int32)
+    attempt_rank = torch.cumsum(cand_ok.to(torch.int32), dim=0) - 1
+    attempted = cand_ok & (attempt_rank < n_free)
+    return gobs, p_f, tri_ok, feat_ids, free_order, attempted
 
 
 def _init_to_lam(state: VioState, cfg: FilterConfig, H_x, H_fg, p_f):
@@ -268,25 +390,15 @@ def _init_to_lam(state: VioState, cfg: FilterConfig, H_x, H_fg, p_f):
 def _delayed_init_work(state: VioState, cfg: FilterConfig,
                        table: FeatureTable,
                        tri_opts: tri.TriangulationOptions, gather_fn, rows,
-                       cand_ok):
+                       cand_ok, collect: bool = True):
     """The joint batched init body (see `delayed_init`)."""
     L, D = cfg.max_slam, cfg.state_dim
     F = MAX_INIT_PER_FRAME
     sigma = cfg.sigma_pix_slam
     dtype, dev = state.cov.dtype, state.cov.device
     T = table.ids.shape[0]
-    n_free = (~state.slam_valid).sum(dtype=torch.int32)
-
-    tri_obs, gobs = gather_fn(state, cfg, table, rows)
-    p_f, tri_ok = tri.triangulate_batch(tri_obs, tri_opts)
-    tri_ok = tri_ok & torch.isfinite(p_f).all(dim=-1)
-    p_f = torch.where(tri_ok[:, None], p_f,
-                      torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
-    feat_ids = torch.where(rows < T, table.ids[torch.clamp(rows, max=T - 1)],
-                           -1)
-    slot_ids = torch.arange(L, device=dev)
-    free_order = torch.sort(torch.where(~state.slam_valid, slot_ids,
-                                        L)).values
+    gobs, p_f, tri_ok, feat_ids, free_order, attempted = _init_candidates(
+        state, cfg, table, tri_opts, gather_fn, rows, cand_ok)
 
     # rotated init system of every candidate (pre-frame linearization)
     ctx0 = uh.obs_context(state, cfg, gobs.clone_slot[0], gobs.cam[0])
@@ -314,11 +426,8 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     R1, Hx1, res1 = R_full[:, :3, :3], Hx_rot[:, :3], res_rot[:, :3]
     H_up, res_up = Hx_rot[:, 3:], res_rot[:, 3:]
 
-    # attempt budget first (feats_slam is sized to the open slots,
-    # VioManager.cpp:410-453), then the quality gates; failed attempts are
+    # attempt budget first, then the quality gates; failed attempts are
     # consumed below so they cannot block the candidate queue
-    attempt_rank = torch.cumsum(cand_ok.to(torch.int32), dim=0) - 1
-    attempted = cand_ok & (attempt_rank < n_free)
     ok = attempted & tri_ok & extra_ok
     # χ² gate on the leftover rows (pre-init covariance, support columns)
     sup = cfg.cam_meas_support_ranges
@@ -384,7 +493,15 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     # consume EVERY attempted candidate's measurements, success or failure
     # (to_delete on processed features, UpdaterSLAM.cpp:139-147, 237)
     table = ft.clear_rows(table, _mark_rows(T, rows, attempted))
-    return state, table, n_init, H_up_all, res_up_all
+    if collect:  # the joint update applies the leftover rows
+        return state, table, n_init, H_up_all, res_up_all
+    # leftover rows are pure H_x rows on the camera support; zero rows are
+    # exact update no-ops
+    r_diag = torch.full((H_up_all.shape[0],), sigma ** 2, dtype=dtype,
+                        device=dev)
+    state = ekf.ekf_update(state, cfg, H_up_all, res_up_all, r_diag,
+                           ranges=cfg.cam_meas_support_ranges)
+    return state, table, n_init
 
 
 def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
@@ -464,6 +581,24 @@ def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
             ok.sum(dtype=torch.int32))
 
 
+def update(state: VioState, cfg: FilterConfig, table: FeatureTable):
+    """One EKF update over every in-state landmark's unconsumed
+    measurements (UpdaterSLAM::update parity, UpdaterSLAM.cpp:254-470;
+    updater_slam.py:679-715 of the reference): `build_update`'s stack,
+    compressed on the SLAM support when it is taller than the support.
+    Returns (state, table, fail_count [L], n_used)."""
+    state, table, H, res, failed, n_used = build_update(state, cfg, table)
+    if cfg.max_slam == 0:
+        return state, table, failed, n_used
+    ranges = cfg.slam_meas_support_ranges
+    if H.shape[0] > sum(b - a for a, b in ranges):
+        H, res = uh.compress_system_ranges(H, res, ranges, cfg.state_dim)
+    r_diag = torch.full((H.shape[0],), cfg.sigma_pix_slam ** 2,
+                        dtype=H.dtype, device=H.device)
+    state = ekf.ekf_update(state, cfg, H, res, r_diag, ranges=ranges)
+    return state, table, failed, n_used
+
+
 def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
     """Re-anchor the landmarks whose anchor clone is about to be
     marginalized onto the newest clone (UpdaterSLAM::change_anchors /
@@ -495,20 +630,27 @@ def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
     lam_new = lrep.from_global(rep, p_G, state.clones_q[new_slot],
                                state.clones_p[new_slot], q_e, p_e)
 
-    # each landmark's [3, D] block row: the dying and the new anchor's
-    # clone columns (the new one wins if the slots coincide) and its own
-    # landmark columns; an identity block row where nothing moves
+    # each landmark's [3, D] block row, built out of place from one-hots
+    # (the slots are device values, batched under vmap): the dying and the
+    # new anchor's clone columns (the new one wins if the slots coincide)
+    # and its own landmark columns; an identity block row where nothing
+    # moves
+    C = cfg.max_clones
     nd = need[:, None, None]
-    rows = state.cov.new_zeros((L, 3, D))
-    six = torch.arange(6, device=dev)
-    rows[:, :, cfg.clones_off + 6 * dying + six] = torch.where(nd, J_xo, 0.0)
-    rows[:, :, cfg.clones_off + 6 * new_slot + six] = torch.where(nd, J_xn,
-                                                                  0.0)
+    cidx = torch.arange(C, device=dev)
+    oh_d = (cidx == dying).to(dtype)[None, None, :, None]  # [1, 1, C, 1]
+    oh_n = (cidx == new_slot).to(dtype)[None, None, :, None]
+    clone_blk = (oh_n * J_xn[:, :, None, :]
+                 + (1.0 - oh_n) * oh_d * J_xo[:, :, None, :])  # [L, 3, C, 6]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    lam_cols = (cfg.slam_off + 3 * torch.arange(L, device=dev)[:, None]
-                + torch.arange(3, device=dev)[None, :])  # [L, 3]
-    rows = rows.scatter(2, lam_cols[:, None, :].expand(L, 3, 3),
-                        torch.where(nd, J_lam, eye3))
+    eye_l = torch.eye(L, dtype=dtype, device=dev)
+    lam_blk = torch.where(nd, J_lam, eye3)  # [L, 3, 3]
+    slam_blk = lam_blk[:, :, None, :] * eye_l[:, None, :, None]  # [L,3,L,3]
+    rows = torch.cat([
+        state.cov.new_zeros((L, 3, cfg.clones_off)),
+        torch.where(nd, clone_blk.reshape(L, 3, 6 * C), 0.0),
+        slam_blk.reshape(L, 3, 3 * L),
+        state.cov.new_zeros((L, 3, D - cfg.calib_dt_off))], dim=-1)
     eye = torch.eye(D, dtype=dtype, device=dev)
     s0, s1 = cfg.slam_off, cfg.slam_off + 3 * L
     M = torch.cat([eye[:s0], rows.reshape(3 * L, D), eye[s1:]])

@@ -53,6 +53,7 @@ import torch.utils._pytree as pytree
 from open_vins_tpu.models import manager as jman
 from open_vins_tpu_torch import convert
 from open_vins_tpu_torch.core.layout import FilterConfig as TCfg
+from open_vins_tpu_torch.core.state import init_state as tstate_init
 from open_vins_tpu_torch.models import manager as tman
 from open_vins_tpu_torch.models import runner as trun
 from open_vins_tpu_torch.models import triangulation as ttri
@@ -159,17 +160,18 @@ def _new_landmark_cols(cfg, pre, post):
     return cols
 
 
-def assert_same_stream(got, want, pre, cfg, where):
+def assert_same_stream(got, want, pre, cfg, where, scale=1.0):
     """(a)'s tolerances: `got` and `want` are (state, table, diag) of one
     stream, `pre` the state the step started from."""
     for k in DIAG_FIELDS:
         assert int(getattr(got[2], k)) == int(getattr(want[2], k)), \
             f"{where} {k}"
-    assert_same_state(got[:2], want[:2], pre, cfg, where)
+    assert_same_state(got[:2], want[:2], pre, cfg, where, scale)
 
 
-def assert_same_state(got, want, pre, cfg, where):
-    """(a)'s tolerances on (state, table) of one stream."""
+def assert_same_state(got, want, pre, cfg, where, scale=1.0):
+    """(a)'s tolerances on (state, table) of one stream, the value and
+    covariance tolerances times `scale`."""
     st_g, tb_g = got
     st_w, tb_w = want
     for k in STATE_EXACT_FIELDS + SLAM_EXACT_FIELDS:
@@ -182,8 +184,9 @@ def assert_same_state(got, want, pre, cfg, where):
         gap = (getattr(tb_g, k) - getattr(tb_w, k)).abs().max()
         assert gap <= 1e-6, f"{where} table.{k} {gap}"
     cols = torch.as_tensor(_new_landmark_cols(cfg, pre, st_w))
-    tol = 1e-5 if cols.any() else 1e-6
-    for k, tol in [(k, tol) for k in STATE_VALUE_FIELDS] + [("slam_p", 1e-5)]:
+    tol = (1e-5 if cols.any() else 1e-6) * scale
+    for k, tol in ([(k, tol) for k in STATE_VALUE_FIELDS]
+                   + [("slam_p", 1e-5 * scale)]):
         a, w = getattr(st_g, k), getattr(st_w, k)
         if w.numel():  # no landmark slots without SLAM
             gap = ((a - w).abs() / w.abs().clamp(min=1.0)).max()
@@ -191,11 +194,11 @@ def assert_same_state(got, want, pre, cfg, where):
     blk = cols[:, None] | cols[None, :]
     gap = (st_g.cov - st_w.cov).abs()
     norm_inf = st_w.cov.abs().sum(1).max()
-    assert gap[~blk].max() <= 1e-6 * norm_inf, \
+    assert gap[~blk].max() <= 1e-6 * scale * norm_inf, \
         f"{where} cov gap {gap[~blk].max() / norm_inf:.2e}·‖P‖∞"
     if cols.any():
         blk_max = st_w.cov[cols][:, cols].abs().max()
-        assert gap[blk].max() <= 1e-4 * blk_max, \
+        assert gap[blk].max() <= 1e-4 * scale * blk_max, \
             f"{where} new-landmark cov gap {gap[blk].max() / blk_max:.2e}"
 
 
@@ -432,3 +435,88 @@ def test_ensemble8_rehearsal():
     assert 0.2 < m["nees_seed_mean"] < 30.0
     jax_mean = float(ref["ref_nees_seed_mean"])
     assert abs(m["nees_seed_mean"] - jax_mean) <= 0.25 * jax_mean
+
+
+def test_run_ensemble_anchored_matches_run_filter():
+    """`run_ensemble` in ANCHORED_MSCKF_INVERSE_DEPTH past the first
+    marginalizations, where `change_anchors` moves landmarks off the dying
+    clone (its covariance rows are built from per-stream clone slots): each
+    stream within 1e-4 m of its own `run_filter`, counts and anchors exact,
+    no vmap fallback."""
+    cfg = TCfg(max_clones=5, max_slam=4, num_cams=1, max_msckf_in_update=8,
+               integration="analytical",
+               feat_rep_slam="ANCHORED_MSCKF_INVERSE_DEPTH")
+    opts = ttri.TriangulationOptions(max_runs=2)
+    calibs, runs = trun.stage_ensemble(GRAFT_PARAMS, range(B), "cpu")
+    with vmap_fallbacks() as fallbacks:
+        state, outs = trun.run_ensemble(cfg, opts, calibs, runs,
+                                        max_tracks=64, device="cpu")
+    assert fallbacks == []
+    diag = outs[4]
+    assert int(diag.n_slam[:, -1].min()) > 0
+    moved = 0
+    for b in range(B):
+        st_b, outs_b = trun.run_filter(cfg, opts, at(calibs, b), at(runs, b),
+                                       max_tracks=64, device="cpu")
+        assert (outs[1][b] - outs_b[1]).abs().max() <= 1e-4
+        for f in DIAG_FIELDS:
+            assert torch.equal(getattr(diag, f)[b], getattr(outs_b[4], f))
+        assert torch.equal(state.slam_anchor_slot[b], st_b.slam_anchor_slot)
+        live = st_b.slam_valid
+        # landmarks now anchored on a clone newer than the one they were
+        # initialized on were moved by change_anchors
+        moved += int((live & (st_b.slam_anchor_slot != 3)).sum())
+    assert moved > 0, "no landmark was re-anchored"
+
+
+@pytest.mark.parametrize("timeoffset", [False, True])
+def test_augment_clone_vmap_matches_single(timeoffset):
+    """`ekf.augment_clone` under vmap (with the camera time offset, its dt
+    column [ω̂; v] is batched) against one call per stream."""
+    from open_vins_tpu_torch.core import ekf as tekf
+
+    cfg = TCfg(max_clones=5, max_slam=2, num_cams=1,
+               calib_cam_timeoffset=timeoffset)
+    rng = np.random.default_rng(4)
+    D = cfg.state_dim
+    states = []
+    for _ in range(B):
+        A = rng.normal(size=(D, D)) * 0.1
+        st = tstate_init(cfg, "cpu").replace(
+            v=torch.as_tensor(rng.normal(size=3), dtype=torch.float32),
+            calib_dt=torch.tensor(0.01),
+            cov=torch.as_tensor(A @ A.T + 0.01 * np.eye(D),
+                                dtype=torch.float32))
+        states.append(st)
+    w = torch.as_tensor(rng.normal(size=(B, 3)), dtype=torch.float32)
+    with vmap_fallbacks() as fallbacks:
+        got = torch.func.vmap(lambda s, w: tekf.augment_clone(s, cfg, w))(
+            trun.stack_records(states), w)
+    assert fallbacks == []
+    for b in range(B):
+        want = tekf.augment_clone(states[b], cfg, w[b])
+        for (k, a), (_, e) in zip(at(got, b).items(), want.items()):
+            assert (a.float() - e.float()).abs().max() <= 1e-6, k
+
+
+def test_batched_step_timeoffset_matches_single_streams():
+    """The batched step with the camera time offset estimated
+    (`augment_clone`'s dt column [ω̂; v] is per stream) against each
+    stream's own step from the same state, over the SLAM problem's 9
+    frames, at (a)'s tolerances; no vmap fallback."""
+    pb = ensemble_problem(4, "analytical", calib_cam_timeoffset=True)
+    cfg = pb.cfg_port
+    step = trun.ensemble_step(cfg, pb.tri_port)
+    frames = jax_frames_to_port(pb.frames)
+    state, table = jax_state_to_port(pb.state), jax_table_to_port(pb.table)
+    for k in range(N_FRAMES):
+        frame = pytree.tree_map(lambda a: a[:, k], frames)
+        with vmap_fallbacks() as fallbacks:
+            post = step(state, table, frame)
+        assert fallbacks == []
+        for b in range(B):
+            one = tman.step_frame(at(state, b), at(table, b), cfg,
+                                  pb.tri_port, at(frame, b))
+            assert_same_stream(at(post, b), one, at(state, b), cfg,
+                               f"frame {k} stream {b}")
+        state, table = post[0], post[1]

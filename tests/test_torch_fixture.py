@@ -50,6 +50,25 @@ MSCKF counts and the staging digest (`convert.ensemble_digest`), and the
 seed-mean NEES with its std.  Write it with
 ``python tests/test_torch_fixture.py --write-ensemble-ref`` (JAX and the
 port on the CPU, several minutes).
+
+The update forms, the sequential ordering and ZUPT have JAX runs of their
+own, each a file like the operating point's:
+
+* `open_vins_tpu_torch/data/oppoint_{woodbury,spd,newton}_sim20_seed0_ref.npz`:
+  the operating point in the joint form of the file's name, and
+  `sequential_sim20_seed0_ref.npz` with `joint_vision_update=False` (the
+  reference-exact ordering), all on the committed frames of the fixture
+  (``--write-forms-ref``, about two minutes);
+* `open_vins_tpu_torch/data/zupt_stopgo20_seed0_ref.npz`: the operating
+  point's widths with ZUPT (`zupt_max_velocity=0.2`,
+  `zupt_max_disparity=3.0`) over 20 s of the stop-and-go trajectory of
+  tests/test_slam_stack.py:27-59 (chip_smoke.py's numpy copy,
+  `stop_and_go_trajectory`), staged by the port's simulator on the CPU
+  from `simulator.draw(params, 0)`, with its staging digest
+  (``--write-zupt-ref``).
+
+`test_forms_refs_match_fresh_run` and `test_sim_refs_match_fresh_run`
+(slow) re-derive them.
 """
 
 from __future__ import annotations
@@ -102,6 +121,26 @@ ENSEMBLE_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
 # trajectory (udel_gore.txt is not in the repository, bench.py:99-103)
 ENSEMBLE_META = {"sim": SIM, "traj": None, "seeds": list(range(8)),
                  "cfg": OPPOINT_CFG, "max_tracks": MAX_TRACKS}
+# the joint update forms and the sequential ordering at the operating point,
+# each on the fixture's frames: name -> (reference file, configuration)
+FORM_REFS = {
+    form: (os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                        f"oppoint_{form}_sim20_seed0_ref.npz"),
+           dict(OPPOINT_CFG, joint_update_form=form))
+    for form in ("woodbury", "spd", "newton")}
+FORM_REFS["sequential"] = (
+    os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                 "sequential_sim20_seed0_ref.npz"),
+    dict(OPPOINT_CFG, joint_vision_update=False))
+ZUPT_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                        "zupt_stopgo20_seed0_ref.npz")
+# the operating point's widths with ZUPT on the stop-and-go trajectory
+# (tests/test_slam_stack.py:27-88: its gates, 20 s of the fixture's stream)
+ZUPT_META = {"sim": SIM, "traj": {"stop_and_go": {"dt": 0.1}},
+             "seed": SEED,
+             "cfg": dict(OPPOINT_CFG, use_zupt=True, zupt_max_velocity=0.2,
+                         zupt_max_disparity=3.0),
+             "max_tracks": MAX_TRACKS}
 V102_TRUTH = "results/suite/truths/V1_02_medium.txt"
 V102_T_RUN = 40.0
 
@@ -203,9 +242,11 @@ def write_fixture(path=FIXTURE):
                       "finite": bool(np.isfinite(np.asarray(state.cov)).all())}))
 
 
-def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
-    """Run JAX's operating point over the committed frames of `frames_path`
-    (the very arrays the port replays) and save the small reference file."""
+def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE,
+                            cfg_kw=OPPOINT_CFG):
+    """Run JAX's operating point (or the configuration `cfg_kw`) over the
+    committed frames of `frames_path` (the very arrays the port replays)
+    and save the small reference file."""
     import types
 
     import jax
@@ -230,7 +271,7 @@ def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
         bias_g_traj=a["bias_g0"][None], bias_a_traj=a["bias_a0"][None],
         cam_R_ItoC=a["cam_R_ItoC"], cam_p_IinC=a["cam_p_IinC"],
         cam_intr=a["cam_intr"])
-    cfg = FilterConfig(**OPPOINT_CFG)
+    cfg = FilterConfig(**cfg_kw)
     tri_opts = tri.TriangulationOptions()
     state, outs = jax.jit(lambda r: runner.run_filter(
         cfg, tri_opts, sim, None, r, max_tracks=MAX_TRACKS))(run)
@@ -241,15 +282,19 @@ def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
         lambda q: lie.quat_2_rot(jnp.asarray(q)),
         lambda R: lie.log_so3(jnp.asarray(R)))
     diag = outs[4]
-    meta = {"frames": os.path.basename(frames_path), "cfg": OPPOINT_CFG,
+    meta = {"frames": os.path.basename(frames_path), "cfg": cfg_kw,
             "seed": SEED, "max_tracks": MAX_TRACKS,
             "tri_opts": "TriangulationOptions()"}
+    extra = {}
+    if cfg.joint_update_form == "newton" and cfg.joint_vision_update:
+        extra["ref_newton_resid"] = np.asarray(diag.newton_resid)
     np.savez_compressed(
         path, ref_q=qs, ref_p=ps, ref_n_msckf=np.asarray(diag.n_msckf),
         ref_n_slam=np.asarray(diag.n_slam),
         ref_n_slam_used=np.asarray(diag.n_slam_used),
         ref_rmse=np.float64(rmse), ref_nees=np.float64(nees),
-        meta=np.asarray(json.dumps(meta)))
+        ref_finite=np.bool_(np.isfinite(np.asarray(state.cov)).all()),
+        **extra, meta=np.asarray(json.dumps(meta)))
     print(json.dumps({
         "path": path, "bytes": os.path.getsize(path),
         "frames": int(qs.shape[0]), "rmse": rmse, "nees": nees,
@@ -257,6 +302,23 @@ def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE):
         "n_slam_mean": float(np.mean(diag.n_slam)),
         "n_slam_used_mean": float(np.mean(diag.n_slam_used)),
         "finite": bool(np.isfinite(np.asarray(state.cov)).all())}))
+
+
+def port_traj(meta):
+    """The (times, R, p) trajectory that `meta["traj"]` names when
+    `convert.stage_stream` cannot read it from a file (the stop-and-go
+    trajectory, chip_smoke.py's copy), else None."""
+    import torch
+
+    spec = meta.get("traj") or {}
+    if "stop_and_go" not in spec:
+        return None
+    from chip_smoke import stop_and_go_trajectory
+
+    params = meta["sim"]
+    return tuple(torch.as_tensor(a) for a in stop_and_go_trajectory(
+        params["duration"] + 2.0 * params["start_offset"] + 2.0,
+        **spec["stop_and_go"]))
 
 
 def jax_run_on_port_stream(meta):
@@ -275,7 +337,7 @@ def jax_run_on_port_stream(meta):
     from open_vins_tpu.ops import lie
     from open_vins_tpu_torch import convert
 
-    sim, _, run_t = convert.stage_stream(meta, "cpu")
+    sim, _, run_t = convert.stage_stream(meta, "cpu", traj=port_traj(meta))
     a = convert.frames_to_numpy(run_t.frames)
     frames = manager.FrameInput(
         win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
@@ -331,7 +393,9 @@ def write_sim_reference(path, meta):
         "state_dim": _cfg_dim(meta["cfg"]),
         **{k: float(v) for k, v in ref.items() if v.ndim == 0},
         "n_slam_mean": float(ref["ref_n_slam"].mean()),
-        "n_msckf_mean": float(ref["ref_n_msckf"].mean())}))
+        "n_msckf_mean": float(ref["ref_n_msckf"].mean()),
+        "zupt_frames": zupt_frames(ref["ref_n_msckf"],
+                                   ref["ref_n_slam_used"])}))
 
 
 class _SimFields(NamedTuple):
@@ -414,15 +478,16 @@ def _cfg_dim(cfg):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("which", ["largemap", "v102"])
+@pytest.mark.parametrize("which", ["largemap", "v102", "zupt"])
 def test_sim_refs_match_fresh_run(which):
     """The committed reference equals a fresh run: the port's CPU staging
     reproduces the digest (ids and masks exactly, floats to 1e-5), and
     JAX's run on it the per-frame positions to 1e-4 m."""
     from open_vins_tpu_torch import convert
 
-    path, meta = ((LARGEMAP_REF, LARGEMAP_META) if which == "largemap"
-                  else (V102_REF, v102_meta()))
+    path, meta = {"largemap": (LARGEMAP_REF, LARGEMAP_META),
+                  "v102": (V102_REF, v102_meta()),
+                  "zupt": (ZUPT_REF, ZUPT_META)}[which]
     ref = convert.load_reference(path)
     assert ref["meta"] == json.loads(json.dumps(meta))
     _, digest, fresh = jax_run_on_port_stream(meta)
@@ -469,9 +534,52 @@ def test_fixture_matches_fresh_staging():
         assert np.isfinite(z["ref_rmse"]) and np.isfinite(z["ref_nees"])
 
 
+def zupt_frames(n_msckf, n_slam_used, first=30):
+    """Frames consumed by a ZUPT from frame `first` on: no MSCKF feature and
+    no landmark used (tests/test_slam_stack.py:120-124)."""
+    n_msckf, n_slam_used = np.asarray(n_msckf), np.asarray(n_slam_used)
+    return int(((n_msckf[first:] == 0) & (n_slam_used[first:] == 0)).sum())
+
+
+def write_forms_references():
+    for path, cfg_kw in FORM_REFS.values():
+        write_oppoint_reference(path, cfg_kw=cfg_kw)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(FORM_REFS))
+def test_forms_refs_match_fresh_run(name, tmp_path):
+    """Each form's committed reference equals a fresh JAX run on the
+    fixture's frames: positions to 1e-4 m, counts exactly."""
+    from open_vins_tpu_torch import convert
+
+    path, cfg_kw = FORM_REFS[name]
+    ref = convert.load_reference(path)
+    assert ref["meta"]["cfg"] == cfg_kw
+    fresh = tmp_path / "fresh.npz"
+    write_oppoint_reference(str(fresh), cfg_kw=cfg_kw)
+    new = convert.load_reference(fresh)
+    np.testing.assert_allclose(new["ref_p"], ref["ref_p"], rtol=0, atol=1e-4)
+    for k in ("ref_n_msckf", "ref_n_slam", "ref_n_slam_used"):
+        np.testing.assert_array_equal(new[k], ref[k], err_msg=k)
+    assert ref["ref_finite"] and ref["ref_rmse"] < 0.05
+
+
+def test_stop_and_go_copy_matches_test_slam_stack():
+    """chip_smoke.py's numpy copy of the stop-and-go trajectory equals
+    tests/test_slam_stack.py's JAX original."""
+    from chip_smoke import stop_and_go_trajectory
+    from test_slam_stack import stop_and_go_trajectory as jax_traj
+
+    for got, want in zip(stop_and_go_trajectory(28.0), jax_traj(28.0)):
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=2e-6)
+
+
 if __name__ == "__main__":
     if {"--write", "--write-oppoint", "--write-sim-refs",
-            "--write-ensemble-ref"} & set(sys.argv):
+            "--write-ensemble-ref", "--write-forms-ref",
+            "--write-zupt-ref"} & set(sys.argv):
         import jax
 
         # stage on the CPU, as the tests re-stage it
@@ -486,5 +594,9 @@ if __name__ == "__main__":
             write_sim_reference(V102_REF, v102_meta())
         if "--write-ensemble-ref" in sys.argv:
             write_ensemble_reference()
+        if "--write-forms-ref" in sys.argv:
+            write_forms_references()
+        if "--write-zupt-ref" in sys.argv:
+            write_sim_reference(ZUPT_REF, ZUPT_META)
     else:
         print(__doc__)

@@ -112,3 +112,32 @@ def test_convert_round_trip():
     fr = convert.frames_to_numpy(convert.frames_from_numpy(frames, "cpu"))
     for k, v in frames.items():
         np.testing.assert_array_equal(fr[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(joint_update_form="woodbury"), dict(joint_update_form="spd"),
+    dict(joint_update_form="newton", gauge_deflation=True,
+         newton_joseph=True),
+    dict(joint_vision_update=False), dict(fast_compress=True),
+    dict(use_zupt=True), dict(use_zupt=True, zupt_explicit_motion=True),
+    dict(feat_rep_slam="ANCHORED_MSCKF_INVERSE_DEPTH", use_zupt=True,
+         joint_vision_update=False)], ids=str)
+def test_update_configurations_are_ported(kw):
+    """Every update configuration of the JAX package's step_frame passes
+    the port's guard (max_slam = 0 too)."""
+    from open_vins_tpu_torch.models import manager
+
+    for max_slam in (0, 4):
+        manager._require_ported(FilterConfig(max_slam=max_slam, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(feat_rep_slam="ANCHORED_INVERSE_DEPTH_SINGLE"),
+    dict(num_aruco_tags=2)], ids=str)
+def test_unported_configurations_raise(kw):
+    """Only the 1-dof single-depth landmarks and aruco landmarks raise."""
+    from open_vins_tpu_torch.models import manager
+
+    with pytest.raises(NotImplementedError):
+        manager._require_ported(FilterConfig(max_slam=4, **kw))
+    manager._require_ported(FilterConfig(max_slam=0, **kw))

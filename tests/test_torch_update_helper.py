@@ -155,3 +155,30 @@ def test_candidate_selection_breaks_ties_like_top_k():
         _, want = jax.lax.top_k(jnp.asarray(score), F)
         got = tman.select_candidates(torch.as_tensor(score), F)
         np.testing.assert_array_equal(np_of(got), np.asarray(want))
+
+
+def test_chi2_statistic_singular_system_is_gated():
+    """A singular S above the 32-row unrolled path (41 rows: a stereo
+    landmark's delayed-init leftovers, 2 × 11 observations − 3) gives a
+    non-finite γ in both packages, which the `isfinite(γ)` gates drop,
+    instead of raising in the port; beside it a regular 41-row system gives
+    the same γ (1e-4 relative)."""
+    rng = np.random.default_rng(3)
+    k, m = 12, 41
+    A = rng.normal(size=(k, k))
+    P = (A @ A.T / k + 0.1 * np.eye(k)).astype(np.float32)
+    H = rng.normal(size=(m, k)).astype(np.float32)
+    H[25:] = 0.0  # zero rows and σ = 0: S has exact zero rows and columns
+    res = rng.normal(size=(m,)).astype(np.float32)
+    for sigma, singular in ((0.0, True), (0.5, False)):
+        want = float(juh.chi2_statistic(jnp.asarray(P), jnp.asarray(H),
+                                        jnp.asarray(res), sigma))
+        got = float(tuh.chi2_statistic(t(P), t(H), t(res), sigma))
+        assert np.isfinite(want) != singular
+        if singular:
+            assert not np.isfinite(got)
+        else:
+            assert got == pytest.approx(want, rel=1e-4)
+        gate = 1e3
+        assert (np.isfinite(got) and got < gate) == (np.isfinite(want)
+                                                     and want < gate)

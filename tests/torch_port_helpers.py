@@ -292,13 +292,13 @@ def jax_calib_draws(num_cams, seed):
         {k: np.asarray(v) for k, v in arrays.items()})
 
 
-def ensemble_problem(max_slam=0, integration="rk4", seeds=(0, 1, 2)
-                     ) -> Problem:
+def ensemble_problem(max_slam=0, integration="rk4", seeds=(0, 1, 2),
+                     **cfg_kw) -> Problem:
     """B = len(seeds) streams of `graft_problem`'s sizes (5 clones, 12
     points, a 10 Hz camera for 1 s, <= 8 MSCKF features, two Gauss-Newton
     runs), with `slam_problem`'s landmarks when max_slam > 0 (GLOBAL_3D,
     the joint "qr" update; pass integration="analytical" for its ACI²), one
-    seed each.  The port's simulator stages the streams on the CPU (no JAX
+    seed each; `cfg_kw` sets further fields of the filter configuration.  The port's simulator stages the streams on the CPU (no JAX
     simulator to compile) and each starts from its groundtruth; the
     Problem's state, table and frames are the JAX package's records of the
     streams stacked on a leading axis ([B, frames, ...] for the frames)."""
@@ -317,7 +317,7 @@ def ensemble_problem(max_slam=0, integration="rk4", seeds=(0, 1, 2)
     params = simulator.SimParams(imu_rate=100.0, cam_rate=10.0, num_cams=1,
                                  num_pts=12, map_size=128, duration=1.0)
     kw = dict(max_clones=5, max_slam=max_slam, num_cams=1,
-              max_msckf_in_update=8, integration=integration)
+              max_msckf_in_update=8, integration=integration, **cfg_kw)
     tc = TCfg(**kw)
     calibs, runs = trun.stage_ensemble(params, seeds, CPU)
     state, table = trun.ensemble_start(tc, calibs, runs, 64)

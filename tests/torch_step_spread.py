@@ -1,6 +1,7 @@
 """How reproducible one filter step is in f32, against the port's gap.
 
     python tests/torch_step_spread.py [--problem graft|slam|wide] [--frames N]
+                                      [--set FIELD=VALUE ...]
 
 For every frame, both packages step from the same JAX state and table.  The
 script prints, per frame, the number of MSCKF features, the port's
@@ -16,7 +17,9 @@ tolerance tighter than it cannot be met by any implementation.
 frames); `slam` is `torch_port_helpers.slam_problem()` (5 clones, 4 SLAM
 slots, ACI², on the staged frames below); `wide` is the staged reference-width run of
 `open_vins_tpu_torch/data/msckf_sim20_seed0.npz` (11 clones, 200 points),
-reported from frame 10 on, where the window is full.
+reported from frame 10 on, where the window is full.  `--set` overrides
+fields of the problem's filter configuration in both packages, for example
+`--set joint_update_form=newton --set newton_iters=14`.
 """
 
 from __future__ import annotations
@@ -49,10 +52,21 @@ def main():
     ap.add_argument("--problem", choices=("graft", "slam", "wide"),
                     default="graft")
     ap.add_argument("--frames", type=int, default=9)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="FIELD=VALUE")
     args = ap.parse_args()
     pb, first = {"graft": (graft_problem, 0), "slam": (slam_problem, 0),
                  "wide": (fixture_problem, 10)}[args.problem]
     pb = pb()
+    if args.set:
+        kw = dict(pb.cfg_jax._asdict())
+        for item in args.set:
+            name, value = item.split("=", 1)
+            kw[name] = type(kw[name])(json.loads(value)
+                                      if not isinstance(kw[name], str)
+                                      else value)
+        pb = pb._replace(cfg_jax=type(pb.cfg_jax)(**kw),
+                         cfg_port=type(pb.cfg_port)(**kw))
     jc, jt = pb.cfg_jax, pb.tri_jax
     step = jax.jit(lambda s, tb, f: jman.step_frame(s, tb, jc, jt, f))
     frames_t = jax_frames_to_port(pb.frames)

@@ -1,8 +1,8 @@
 """Where a frame of the PyTorch port's main path spends its time on the GPU.
 
     python tools/torch_main_path_profile.py
-        [--config msckf|oppoint|largemap|replay|ensemble8] [--warm 40]
-        [--frames 40]
+        [--config msckf|oppoint|woodbury|spd|newton|sequential|zupt|
+                  largemap|replay|ensemble8] [--warm 40] [--frames 40]
 
 Steps a closed loop (`models/manager.step_frame`) through `--warm` frames,
 then traces the next `--frames` frames with `torch.profiler` and prints one
@@ -10,13 +10,21 @@ JSON line: host wall time per frame, GPU kernel launches and busy time per
 frame, the GPU's idle share of the wall time, the hand-written kernels'
 launches, the host time spent in delayed init's one read of a device flag
 (the `updater_slam.INIT_FLAG_READ` range: the wait for the queued GPU work
-plus the few operations that form the flag), and the kernels that take the
-most device time.  The host time per frame is taken on a second, untraced
+plus the few operations that form the flag) and in the ZUPT decision's
+(`manager.ZUPT_FLAG_READ`), and the kernels that take the most device
+time.  The host time per frame is taken on a second, untraced
 window of as many frames.
 `msckf` is the MSCKF-only configuration of the staged run
 `open_vins_tpu_torch/data/msckf_sim20_seed0.npz`; `oppoint` is the bench's
 operating point (SLAM, ACI², the joint "qr" update) of
 `open_vins_tpu_torch/data/oppoint_sim20_seed0_ref.npz` on the same frames;
+`woodbury`, `spd` and `newton` are the operating point in those joint
+forms and `sequential` in the reference-exact sequential ordering (the
+configurations of `oppoint_{form}_sim20_seed0_ref.npz` and
+`sequential_sim20_seed0_ref.npz`), on the same frames; `zupt` is the
+operating point's widths with ZUPT on the stop-and-go stream of
+`zupt_stopgo20_seed0_ref.npz`, staged on the card (the trajectory is
+chip_smoke.py's `stop_and_go_trajectory`);
 `largemap` (bench.py's large map, D = 1434, 159 frames) and `replay` (the
 V1_02 replay in ANCHORED_MSCKF_INVERSE_DEPTH, 799 frames) are staged on the
 card by the port's simulator from the configuration of
@@ -59,6 +67,15 @@ OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
 STAGED_REFS = {"largemap": os.path.join(DATA, "largemap_sim8_seed0_ref.npz"),
                "replay": os.path.join(DATA, "v102_replay40_seed0_ref.npz")}
 ENSEMBLE_REF = os.path.join(DATA, "ensemble8_sim20_ref.npz")
+# configurations on the fixture's frames, each with its reference file
+FRAME_REFS = {"oppoint": OPPOINT_REF,
+              "sequential": os.path.join(DATA,
+                                         "sequential_sim20_seed0_ref.npz"),
+              **{form: os.path.join(DATA, f"oppoint_{form}_sim20_seed0_ref.npz")
+                 for form in ("woodbury", "spd", "newton")}}
+ZUPT_REF = os.path.join(DATA, "zupt_stopgo20_seed0_ref.npz")
+FLAG_READS = {"init": updater_slam.INIT_FLAG_READ,
+              "zupt": manager.ZUPT_FLAG_READ}
 
 
 def _union_us(intervals):
@@ -77,8 +94,8 @@ def _union_us(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="msckf",
-                    choices=("msckf", "oppoint", "largemap", "replay",
-                             "ensemble8"))
+                    choices=("msckf", *FRAME_REFS, "zupt", "largemap",
+                             "replay", "ensemble8"))
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--frames", type=int, default=40)
     args = ap.parse_args()
@@ -104,10 +121,22 @@ def main():
             ref = convert.load_reference(STAGED_REFS[args.config])
             sim, _, run = convert.stage_stream(ref["meta"], "cuda")
             calib = runner.sim_calib(sim)
+        elif args.config == "zupt":
+            from chip_smoke import stop_and_go_trajectory
+
+            ref = convert.load_reference(ZUPT_REF)
+            meta = ref["meta"]
+            traj = tuple(torch.as_tensor(a, device="cuda")
+                         for a in stop_and_go_trajectory(
+                             meta["sim"]["duration"]
+                             + 2.0 * meta["sim"]["start_offset"] + 2.0,
+                             **meta["traj"]["stop_and_go"]))
+            sim, _, run = convert.stage_stream(meta, "cuda", traj=traj)
+            calib = runner.sim_calib(sim)
         else:
             run, calib, ref = convert.load_staged_run(FIXTURE, "cuda")
-        if args.config == "oppoint":
-            ref = convert.load_reference(OPPOINT_REF)
+        if args.config in FRAME_REFS:
+            ref = convert.load_reference(FRAME_REFS[args.config])
         cfg = FilterConfig(**ref["meta"]["cfg"])
         state = manager.initialize_from_gt(
             cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], calib.bias_g0,
@@ -153,7 +182,7 @@ def main():
     # GPU timeline
     gpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name != updater_slam.INIT_FLAG_READ]
+           and e.name not in FLAG_READS.values()]
     spans = [(e.time_range.start, e.time_range.end) for e in gpu]
     busy_us = _union_us(spans)
     by_name = collections.defaultdict(lambda: [0, 0.0])
@@ -161,10 +190,11 @@ def main():
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    # the host's range only
-    flag_reads = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.name == updater_slam.INIT_FLAG_READ
-                  and e.device_type == torch.autograd.DeviceType.CPU]
+    # the host's ranges only
+    flag_reads = {k: [e.time_range.elapsed_us() for e in prof.events()
+                      if e.name == name
+                      and e.device_type == torch.autograd.DeviceType.CPU]
+                  for k, name in FLAG_READS.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -173,6 +203,9 @@ def main():
     def mean(key):
         return float(torch.stack([getattr(d, key) for d in diags])
                      .float().mean())
+
+    def largest(key):
+        return float(torch.stack([getattr(d, key) for d in diags]).max())
 
     print(json.dumps({
         "config": args.config, "state_dim": cfg.state_dim,
@@ -188,9 +221,15 @@ def main():
         "gpu_busy_ms_per_frame": busy_us / 1e3 / n,
         "gpu_idle_share": 1.0 - busy_us / 1e6 / wall_s,
         "launches": launches,
-        "init_flag_reads_per_frame": len(flag_reads) / n,
-        "init_flag_read_host_ms_per_frame": sum(flag_reads) / 1e3 / n,
-        "init_flag_read_host_ms_max": max(flag_reads, default=0.0) / 1e3,
+        **{f"{k}_flag_reads_per_frame": len(v) / n
+           for k, v in flag_reads.items()},
+        **{f"{k}_flag_read_host_ms_per_frame": sum(v) / 1e3 / n
+           for k, v in flag_reads.items()},
+        **{f"{k}_flag_read_host_ms_max": max(v, default=0.0) / 1e3
+           for k, v in flag_reads.items()},
+        "zupt_frames": sum(int((d.n_msckf == 0) & (d.n_slam_used == 0))
+                           for d in diags) if args.config == "zupt" else None,
+        "newton_resid_max": largest("newton_resid"),
         "top_kernels": [{"name": k[:80], "calls_per_frame": c / n,
                          "us_per_frame": us / n} for k, (c, us) in top],
     }))
