@@ -92,6 +92,42 @@ so the exit code is not 0):
    m = 9 and the newton update's, both K ≠ PHt), the masked polish sweeps
    on the card, and at frame 30 each stream against its own step
    (NEWTON_STEP_TOL, NEWTON_INIT_STEP_TOL).
+11. the image front end on bench.py's rendered stream (bench.py:284-380:
+   752x480 stereo, a map of 2,048 points, 8 s on the sine trajectory, the
+   stereo calibration of bench.py:292-299), against the JAX references in
+   `open_vins_tpu_torch/data/rendered_stereo8_seed0_ref.npz`:
+   `sim_staging_rendered` stages the stream on the card (held against the
+   CPU staging's digest, as phase 7); `render` renders all 160 frames of
+   both cameras in one batched call (`runner.render_frames`), each frame's
+   image sum, sum of squares and first moments Σx·I, Σy·I (which a flip,
+   a transpose or a misplaced sprite moves) within 1e-4 relative of JAX's
+   `render_frame` on the CPU staging, and prints
+   `frontend_render_ms_per_frame`; `tracker_staged` runs
+   `runner.run_tracker_staged` on the first 120 card-rendered frames with
+   bench.py's KltParams (200 features, 20x15 grid, 4 levels, 21x21
+   window), must hold more than 150 tracks per frame, within 5 % of JAX's
+   mean on the CPU-rendered images and no frame below half of JAX's count,
+   and prints `klt_track_frames_per_sec_1chip` and the GPU kernels per
+   frame (torch.profiler over 10 frames); `descriptor` runs the
+   descriptor tracker on 40 left-eye frames, its mean inherited ids per
+   frame within 10 % of JAX's tracker with the port's matched-rows id
+   scatter (JAX's own, which scatters every row, is printed beside it);
+   `main_path_rendered` runs `runner.run_filter_rendered` (11 clones, 25
+   landmark slots, two cameras, <= 40 MSCKF features, ACI², 384 tracks)
+   over all 159 frames: finite covariance, RMSE < 0.09 m (bench.py:373-374),
+   NEES in 0.2-30, landmarks in use, more than 150 tracks per frame, one
+   downdate launch per frame, and an RMSE within max(0.01 m, twice the
+   JAX pipeline's own spread) of JAX's run — the spread is the RMSE gap
+   between two JAX runs whose trackers differ only in the RANSAC seed, the
+   one thing the port cannot reproduce; it prints
+   `rendered_pipeline_frames_per_sec_1chip`.  That bar is wide (JAX's two
+   seeds lie 0.038 m apart), so `rendered_replay` holds the same pipeline
+   to JAX itself: it hands the tracker JAX's own RANSAC sets for the
+   first 40 frames, recorded in the reference, and requires the tracker's
+   packets (`runner.render_and_track`) to carry JAX's ids and masks
+   exactly and its points within 5e-3 px, and `runner.run_filter_rendered`
+   over those frames JAX's per-frame MSCKF, landmark and track counts
+   exactly and its positions and quaternions within 1e-4.
 
 Each closed loop sets the kernels' launch counts to 0 just before its timed
 run and reads them just after, and must launch `symmetric_downdate` at
@@ -177,6 +213,18 @@ FORMS_CAPTURE_FRAME = 30  # the K ≠ PHt operands of the forms and of ZUPT
 # the vmapped newton + ZUPT check: 8 streams of the ensemble, this many
 # frames, each stream held against its own step at ENSEMBLE_CHECK_FRAME
 NEWTON_ZUPT_FRAMES = 40
+RENDERED_REF = os.path.join(DATA, "rendered_stereo8_seed0_ref.npz")
+RENDER_SUM_RTOL = 1e-4  # per-frame image moments against JAX's render_frame
+RENDER_MOMENTS = ("sum", "sumsq", "mx", "my")  # `render_moments`' order
+REPLAY_UV_TOL_PX = 5e-3  # packets with JAX's sets: 1.5e-3 port-CPU vs JAX
+REPLAY_POSE_TOL = 1e-4  # positions (m) and quaternions with JAX's sets
+MIN_TRACKS = 150.0  # bench.py's tracker gate (tracks per stereo frame)
+TRACKER_MEAN_SPREAD = 0.05  # mean tracks per frame against JAX's
+TRACKER_FRAME_FLOOR = 0.5  # no frame below this share of JAX's count
+RENDERED_RMSE_GATE_M = 0.09  # bench.py:373-374
+RENDERED_NEES = (0.2, 30.0)
+DESC_SPREAD = 0.10  # mean inherited ids per frame against JAX's
+TRACKER_PROFILE_FRAMES = 10
 # the newton form's batched step against its single-stream step: 5 times
 # the "qr" rule (its Newton sweeps amplify the batched products' rounding;
 # tests/test_torch_zupt.py)
@@ -185,6 +233,40 @@ NEWTON_STEP_TOL, NEWTON_INIT_STEP_TOL = 5e-5, 2.5e-4
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def render_moments(img):
+    """Per image [..., H, W] (numpy or torch): its sum, sum of squares and
+    first moments Σx·I, Σy·I (x the column, y the row), in RENDER_MOMENTS'
+    order, in the image's dtype."""
+    import numpy as np
+
+    h, w = img.shape[-2:]
+    if isinstance(img, np.ndarray):
+        xs, ys = np.arange(w, dtype=img.dtype), np.arange(h, dtype=img.dtype)
+    else:
+        import torch
+
+        xs = torch.arange(w, dtype=img.dtype, device=img.device)
+        ys = torch.arange(h, dtype=img.dtype, device=img.device)
+    return [img.sum((-2, -1)), (img * img).sum((-2, -1)),
+            (img * xs).sum((-2, -1)), (img * ys[:, None]).sum((-2, -1))]
+
+
+def replayed_sets(sets):
+    """A tracker's source of hypothesis sets (`sets_of`) that hands out the
+    given sets (numpy [calls, K, 8]) one call after another, on the mask's
+    device; `left()` counts the calls not yet served."""
+    import torch
+
+    queue = list(sets)
+
+    def sets_of(mask):
+        return torch.as_tensor(queue.pop(0), dtype=torch.int64,
+                               device=mask.device)
+
+    sets_of.left = lambda: len(queue)
+    return sets_of
 
 
 def stop_and_go_trajectory(duration, dt=0.1):
@@ -1289,6 +1371,335 @@ def phase_zupt_path(ref):
     return row
 
 
+def _metric(name, value, unit, smi):
+    """One bench.py-style metric line with the card's name and power
+    limit."""
+    emit({"metric": name, "value": value, "unit": unit, "nvidia_smi": smi})
+
+
+def phase_sim_staging_rendered(ref):
+    """Stage bench.py's rendered stream (752x480 stereo, 2,048 map points,
+    8 s) on the card and hold it against the CPU staging's digest."""
+    import torch
+
+    from open_vins_tpu_torch import convert
+
+    t0 = time.perf_counter()
+    sim, params, run = convert.stage_stream(ref["meta"], "cuda")
+    torch.cuda.synchronize()
+    _check_staging("rendered_stereo", time.perf_counter() - t0, params, run,
+                   _digest_of(ref), lambda: sim)
+    return sim, params, run
+
+
+def phase_render(sim, params, ref, smi):
+    """Every frame of both cameras rendered on the card in one batched
+    call (`runner.render_frames`), held per frame against JAX's
+    `render_frame` moments on the CPU staging; returns the images."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch.models import runner
+
+    n = ref["ref_render_sum"].shape[0]
+    runner.render_frames(sim, params, 2, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        imgs = runner.render_frames(sim, params, n, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    got = [m.cpu().numpy() for m in render_moments(imgs.double())]
+    errs = {m: float(np.abs(g / ref[f"ref_render_{m}"] - 1.0).max())
+            for m, g in zip(RENDER_MOMENTS, got)}
+    err = max(errs.values())
+    ms = 1e3 * statistics.median(times) / n
+    row = {"phase": "render", "frames": n, "cams": params.num_cams,
+           "shape": list(imgs.shape), "seconds": times,
+           "ms_per_frame": ms, "moments_max_rel_err": errs,
+           "finite": bool(torch.isfinite(imgs).all())}
+    emit(row)
+    _metric("frontend_render_ms_per_frame", ms,
+            f"ms/frame ({params.width}x{params.height} stereo sprite "
+            f"render, {params.map_size} pts, {n} frames in one call)", smi)
+    if not (row["finite"] and err <= RENDER_SUM_RTOL):
+        raise AssertionError(f"render: image moments {errs} from JAX's")
+    return imgs
+
+
+def _tracker_launches(imgs, sim, params, kp, n):
+    """(GPU kernels per frame, host ms per frame) of the tracker over n
+    frames under torch.profiler."""
+    import torch
+
+    from open_vins_tpu_torch.frontend import ransac
+    from open_vins_tpu_torch.models import runner
+
+    sets_of = ransac.sampler(torch.Generator(device="cuda").manual_seed(0))
+    tstate = runner.start_tracker(sim.cam_intr, params, kp, "STRETCH",
+                                  sets_of, imgs[0])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for k in range(1, n + 1):
+            tstate, *_ = runner.track_images(tstate, imgs[k], sim.cam_intr,
+                                             params, kp, False, "STRETCH",
+                                             sets_of)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(gpu) / n, 1e3 * wall / n
+
+
+def phase_tracker_staged(imgs, sim, params, ref, smi):
+    """`runner.run_tracker_staged` on the first card-rendered stereo frames
+    with bench.py's KltParams, against JAX's counts on the CPU-rendered
+    images."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch.frontend import klt
+    from open_vins_tpu_torch.models import runner
+
+    meta = ref["meta"]
+    kp = klt.KltParams(**meta["klt"])
+    n = meta["tracker_frames"]
+    runner.run_tracker_staged(imgs[:6], sim, params, kp, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, counts = runner.run_tracker_staged(imgs[:n], sim, params, kp,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = counts.cpu().numpy()
+    jax_counts = np.asarray(ref["ref_tracker_counts"])
+    kernels_pf, host_ms = _tracker_launches(imgs, sim, params, kp,
+                                            TRACKER_PROFILE_FRAMES)
+    fps = (n - 1) / seconds
+    row = {"phase": "tracker_staged", "frames": n - 1, "seconds": seconds,
+           "frames_per_s": fps, "host_ms_per_frame": 1e3 * seconds / (n - 1),
+           "tracks_mean": float(counts.mean()),
+           "jax_tracks_mean": float(jax_counts.mean()),
+           "tracks_min_share_of_jax": float((counts / jax_counts).min()),
+           "gpu_kernels_per_frame": kernels_pf,
+           "profiled_host_ms_per_frame": host_ms}
+    emit(row)
+    _metric("klt_track_frames_per_sec_1chip", fps,
+            f"frames/s ({params.width}x{params.height} stereo tracker-only, "
+            f"{row['tracks_mean']:.0f} tracks/frame, {kernels_pf:.0f} GPU "
+            "kernels/frame)", smi)
+    ok = (row["tracks_mean"] > MIN_TRACKS
+          and abs(row["tracks_mean"] - row["jax_tracks_mean"])
+          <= TRACKER_MEAN_SPREAD * row["jax_tracks_mean"]
+          and row["tracks_min_share_of_jax"] >= TRACKER_FRAME_FLOOR)
+    if not ok:
+        raise AssertionError(f"tracker_staged: a gate failed: {row}")
+    return row
+
+
+def phase_main_path_rendered(sim, params, run, ref, smi):
+    """The images->pose pipeline through `runner.run_filter_rendered` over
+    every frame of the rendered stream (the module docstring's rendered
+    gates)."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.frontend import klt
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.ops import kernels
+
+    meta = ref["meta"]
+    cfg, kp = FilterConfig(**meta["cfg"]), klt.KltParams(**meta["klt"])
+    opts = tri.TriangulationOptions()
+    runner.run_filter_rendered(cfg, opts, sim, params, _prefix(run, 8), kp,
+                               max_tracks=meta["max_tracks"], device="cuda")
+    torch.cuda.synchronize()
+    n_frames = run.frames.t_new.shape[0]
+    kernels.symmetric_downdate.launches = 0
+    kernels.householder_qr_blocks.launches = 0
+    t0 = time.perf_counter()
+    (state, _, _), outs = runner.run_filter_rendered(
+        cfg, opts, sim, params, run, kp, max_tracks=meta["max_tracks"],
+        device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
+                "householder_qr_blocks":
+                    kernels.householder_qr_blocks.launches}
+    qs, ps, _, covs6, diag, tracked = outs
+    rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
+    spread = abs(ref["ref_rmse"] - ref["ref_seed1_rmse"])
+    bar = max(REF_RMSE_SPREAD_M, 2.0 * spread)
+    fps = n_frames / seconds
+    row = {"phase": "main_path_rendered", "frames": n_frames,
+           "state_dim": cfg.state_dim, "seconds": seconds,
+           "frames_per_s": fps, "rmse_m": rmse, "nees": nees,
+           "finite": bool(torch.isfinite(state.cov).all().item()),
+           "jax_rmse_m": ref["ref_rmse"], "jax_nees": ref["ref_nees"],
+           "jax_seed1_rmse_m": ref["ref_seed1_rmse"],
+           "jax_seed1_nees": ref["ref_seed1_nees"],
+           "jax_rmse_bar_m": bar,
+           "tracks_mean": float(tracked.float().mean()),
+           "n_msckf_mean": float(diag.n_msckf.float().mean()),
+           "n_slam_mean": float(diag.n_slam.float().mean()),
+           "jax_n_slam_mean": float(np.mean(ref["ref_n_slam"])),
+           "launches": launches}
+    emit(row)
+    _metric("rendered_pipeline_frames_per_sec_1chip", fps,
+            f"frames/s (images->pose, {params.width}x{params.height} stereo,"
+            f" rmse {rmse:.3f} m)", smi)
+    ok = (row["finite"] and rmse < RENDERED_RMSE_GATE_M
+          and RENDERED_NEES[0] < nees < RENDERED_NEES[1]
+          and row["n_slam_mean"] > 0 and row["tracks_mean"] > MIN_TRACKS
+          and launches["symmetric_downdate"] == n_frames
+          and abs(rmse - ref["ref_rmse"]) <= bar)
+    if not ok:
+        raise AssertionError(f"main_path_rendered: a gate failed: {row}")
+    return row
+
+
+def replay_packets(sim, params, kp, ref, n):
+    """The tracker over frames 0..n of the rendered stream with the JAX
+    sets recorded in `ref` (`replayed_sets`), each packet against JAX's.
+    Returns, per frame 1..n, (ids differing, masks differing, offsets [px]
+    of the points of the tracks both keep, the larger coordinate), and the
+    sets not handed out."""
+    import numpy as np
+
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.sim import render
+
+    sets_of = replayed_sets(ref["ref_replay_sets"])
+    tstate = runner.start_tracker(sim.cam_intr, params, kp, "STRETCH",
+                                  sets_of, render.render(sim, params, [0])[0])
+    frames = []
+    for k in range(1, n + 1):
+        tstate, ids, uv, _, mask = runner.render_and_track(
+            tstate, sim, params, kp, k, False, "STRETCH", sets_of)
+        ids, uv, mask = (x.cpu().numpy() for x in (ids, uv, mask))
+        want = ref["ref_replay_mask"][k - 1]
+        offsets = np.abs(uv - ref["ref_replay_uv"][k - 1]).max(-1)
+        frames.append((int((ids != ref["ref_replay_ids"][k - 1]).sum()),
+                       int((mask != want).sum()), offsets[mask & want]))
+    return frames, sets_of.left()
+
+
+def phase_rendered_replay(ref, device="cuda"):
+    """The rendered pipeline's first frames with JAX's own RANSAC sets
+    replayed (the module docstring's `rendered_replay`) on the CPU staging
+    that JAX's reference ran on, moved to `device`: the tracker's packets
+    frame by frame, then `runner.run_filter_rendered`'s poses and counts,
+    each against JAX's.  `device` "cpu" is the CPU tests' run of the same
+    gates."""
+    import numpy as np
+    import torch
+    import torch.utils._pytree as pytree
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.frontend import klt
+    from open_vins_tpu_torch.models import runner
+    from open_vins_tpu_torch.models import triangulation as tri
+
+    meta = ref["meta"]
+    n = meta["replay_frames"]
+    cfg, kp = FilterConfig(**meta["cfg"]), klt.KltParams(**meta["klt"])
+    sim, params, run = convert.stage_stream(meta, "cpu")
+    sim, run = (pytree.tree_map(lambda a: a.to(device), x) for x in (sim, run))
+    t0 = time.perf_counter()
+    frames, tracker_left = replay_packets(sim, params, kp, ref, n)
+    ids_off = sum(f[0] for f in frames)
+    mask_off = sum(f[1] for f in frames)
+    uv_err = max(float(f[2].max(initial=0.0)) for f in frames)
+    sets_of = replayed_sets(ref["ref_replay_sets"])
+    (state, _, _), outs = runner.run_filter_rendered(
+        cfg, tri.TriangulationOptions(), sim, params, _prefix(run, n), kp,
+        max_tracks=meta["max_tracks"], sets_of=sets_of, device=device)
+    qs, ps, _, _, diag, _ = outs
+    counts_off = {c: int((getattr(diag, c).cpu().numpy()
+                          != ref[f"ref_{c}"][:n]).sum())
+                  for c in ("n_tracks", "n_msckf", "n_slam", "n_slam_used")}
+    row = {"phase": "rendered_replay", "frames": n,
+           "seconds": time.perf_counter() - t0,
+           "ids_differing": ids_off, "mask_differing": mask_off,
+           "uv_max_abs_err_px": uv_err,
+           "p_max_abs_err_m": float(np.abs(ps.cpu().numpy()
+                                           - ref["ref_p"][:n]).max()),
+           "q_max_abs_err": float(np.abs(qs.cpu().numpy()
+                                         - ref["ref_q"][:n]).max()),
+           "counts_differing": counts_off,
+           "n_slam_mean": float(diag.n_slam.float().mean()),
+           "sets_left": [tracker_left, sets_of.left()],
+           "finite": bool(torch.isfinite(state.cov).all().item())}
+    emit(row)
+    ok = (ids_off == 0 and mask_off == 0 and uv_err <= REPLAY_UV_TOL_PX
+          and row["p_max_abs_err_m"] <= REPLAY_POSE_TOL
+          and row["q_max_abs_err"] <= REPLAY_POSE_TOL
+          and not any(counts_off.values()) and row["n_slam_mean"] > 0
+          and row["sets_left"] == [0, 0] and row["finite"])
+    if not ok:
+        raise AssertionError(f"rendered_replay: a gate failed: {row}")
+    return row
+
+
+def inherited_counts(ids, valid):
+    """Per frame 1.. of a descriptor-tracker run (ids [K, P], valid
+    [K, P], numpy): valid detections whose id comes from an earlier
+    frame."""
+    counts = []
+    for k in range(1, len(ids)):
+        before = ids[:k][valid[:k]]
+        top = before.max() if before.size else -1
+        counts.append(int((valid[k] & (ids[k] <= top)).sum()))
+    return counts
+
+
+def phase_descriptor(imgs, sim, ref):
+    """The descriptor tracker on the first card-rendered left-eye frames,
+    against JAX's `descriptor.track_frame` with the matched-rows id scatter
+    (the port's semantics) on the CPU-rendered images; JAX's count with its
+    scatter of every row is printed beside it."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch.frontend import descriptor, klt, ransac
+
+    meta = ref["meta"]
+    kp = klt.KltParams(**meta["klt"])
+    sets_of = ransac.sampler(torch.Generator(device="cuda").manual_seed(0))
+    state = descriptor.init_tracker(kp.num_features, device="cuda")
+    ids, valid = [], []
+    t0 = time.perf_counter()
+    for k in range(meta["descriptor_frames"]):
+        state, i, _, _, v = descriptor.track_frame(
+            state, imgs[k, 0], sim.cam_intr[0], kp, sets_of,
+            first_frame=k == 0)
+        ids.append(i)
+        valid.append(v)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = inherited_counts(torch.stack(ids).cpu().numpy(),
+                              torch.stack(valid).cpu().numpy())
+    want = float(np.mean(ref["ref_desc_matched_scatter_counts"]))
+    row = {"phase": "descriptor", "frames": len(ids), "seconds": seconds,
+           "inherited_mean": float(np.mean(counts)),
+           "jax_inherited_mean": want,
+           "jax_all_rows_scatter_inherited_mean": float(
+               np.mean(ref["ref_desc_counts"])),
+           "detections_mean": float(torch.stack(valid).float().sum(1)
+                                    .mean())}
+    emit(row)
+    if not abs(row["inherited_mean"] - want) <= DESC_SPREAD * want:
+        raise AssertionError(f"descriptor: a gate failed: {row}")
+    return row
+
+
 def _kernel_numbers(row):
     """A kernel's numbers for the kernels line: `ms` and `library_ms` are
     device times (`device_ms`); the per-call times stand beside them."""
@@ -1329,6 +1740,15 @@ def main():
     en_ref = convert.load_reference(ENSEMBLE_REF)
     en_row, calibs, runs = phase_ensemble8(en_ref)
     nz_row = phase_newton_zupt_ensemble(en_ref, calibs, runs)
+    del calibs, runs
+    rd_ref = convert.load_reference(RENDERED_REF)
+    rsim, rparams, rrun = phase_sim_staging_rendered(rd_ref)
+    imgs = phase_render(rsim, rparams, rd_ref, smi)
+    phase_tracker_staged(imgs, rsim, rparams, rd_ref, smi)
+    phase_descriptor(imgs, rsim, rd_ref)
+    del imgs
+    phase_rendered_replay(rd_ref)
+    rd_row = phase_main_path_rendered(rsim, rparams, rrun, rd_ref, smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
@@ -1348,6 +1768,7 @@ def main():
         "launches_zupt": zupt_row["launches"]["symmetric_downdate"],
         "launches_ensemble8_newton_zupt":
             nz_row["launches"]["symmetric_downdate"],
+        "launches_rendered": rd_row["launches"]["symmetric_downdate"],
         **_kernel_numbers(dd),
         "k_not_pht": [{"operands": name, "shape": [r["D"], r["m"]],
                        "library": "torch.addmm", **_kernel_numbers(r)}

@@ -17,11 +17,17 @@ representations (`models.landmark_rep`, with `change_anchors`), the joint
 batched delayed init, the joint "qr" vision update, and the rk4, discrete
 or analytical (ACI²) integrators.  `runner.run_ensemble` runs bench.py's
 seed ensemble: B streams stepped as one batched step, `step_frame` under
-`torch.func.vmap`.  Two hand-written Hopper kernels (see `ops/kernels.py`,
-custom ops with vmap rules, so a batched call is one launch): every EKF
-update's covariance downdate runs `ops/csrc/symmetric_downdate.cu`, and the
-Householder TSQR compression (`models.update_helper.compress_system`) runs
-its row blocks through `ops/csrc/householder_qr_blocks.cu`.
+`torch.func.vmap`.  The image front end (`frontend/`: pyramidal KLT,
+fundamental-matrix RANSAC whose hypotheses come from a seeded
+`torch.Generator`, the KLT and descriptor trackers) and the sprite renderer
+(`sim/render.py`) run bench.py's rendered images->pose pipeline:
+`runner.run_filter_rendered` renders every camera each frame, tracks the
+images and steps the filter on the tracker's packets.  Two hand-written
+Hopper kernels (see `ops/kernels.py`, custom ops with vmap rules, so a
+batched call is one launch): every EKF update's covariance downdate runs
+`ops/csrc/symmetric_downdate.cu`, and the Householder TSQR compression
+(`models.update_helper.compress_system`) runs its row blocks through
+`ops/csrc/householder_qr_blocks.cu`.
 """
 
 import torch as _torch

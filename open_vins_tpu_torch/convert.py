@@ -22,6 +22,7 @@ from open_vins_tpu_torch.models.manager import FrameInput
 from open_vins_tpu_torch.models.propagator import ImuWindow
 from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.models.runner import SimCalib, SimRun
+from open_vins_tpu_torch.ops import lie
 from open_vins_tpu_torch.sim import simulator, trajectories
 from open_vins_tpu_torch.sim.simulator import CalibDraws, SimDraws
 
@@ -110,18 +111,19 @@ def calib_draws_to_numpy(draws: CalibDraws) -> dict:
 
 def load_reference(path) -> dict:
     """The JAX run stored in an `.npz` (a staged-run file or a `*_ref.npz`
-    beside one): its per-frame `ref_*` arrays, `ref_rmse`/`ref_nees` as
-    floats (an ensemble's file holds one per stream: then arrays [B]),
-    `meta` (the configuration, decoded from JSON) and, where the file has
-    one, the staging digest as `digest_*` (`staging_digest`; an ensemble's
+    beside one): its per-frame `ref_*` arrays, its scalar float `ref_*`
+    (`ref_rmse`, `ref_nees`, ...) as Python floats (an ensemble's file
+    holds RMSE and NEES per stream: then arrays [B]), `meta` (the
+    configuration, decoded from JSON) and, where the file has one, the
+    staging digest as `digest_*` (`staging_digest`; an ensemble's
     file stacks one per stream, `ensemble_digest`)."""
     with np.load(path) as z:
         ref = {k: z[k] for k in z.files
                if k.startswith("ref_") or k.startswith("digest_")}
         ref["meta"] = json.loads(str(z["meta"]))
-    for k in ("ref_rmse", "ref_nees"):
-        if ref[k].ndim == 0:
-            ref[k] = float(ref[k])
+    for k, v in ref.items():
+        if k.startswith("ref_") and v.ndim == 0 and v.dtype.kind == "f":
+            ref[k] = float(v)
     return ref
 
 
@@ -148,7 +150,8 @@ def stage_stream(meta, device=None, traj=None):
     reference file's configuration: `sim` holds the SimParams fields,
     `seed` the draw seed, `traj` None for the sine trajectory or
     {"file": path relative to the repository root, "n_ctrl", "dt"} for a
-    padded trajectory file) and its whole stream staged on `device`.  A
+    padded trajectory file, `calib` None for `simulator.default_calib` or
+    `calib_from_meta`'s dict) and its whole stream staged on `device`.  A
     given `traj` (times, R_ItoG, p) is used instead of `meta["traj"]`."""
     dev = resolve_device(device)
     params = simulator.SimParams(**meta["sim"])
@@ -157,10 +160,23 @@ def stage_stream(meta, device=None, traj=None):
         traj, _ = trajectories.load_trajectory_padded(
             os.path.join(ROOT, spec["file"]), spec["n_ctrl"], dt=spec["dt"],
             device=dev)
+    calib = meta.get("calib")
     sim = simulator.build(params, seed=meta["seed"], traj=traj,
+                          calib=calib and calib_from_meta(calib, dev),
                           draws=simulator.draw(params, meta["seed"]),
                           device=dev)
     return sim, params, runner.stage_run(sim, params)
+
+
+def calib_from_meta(calib, device=None):
+    """(intr [N, 8], R_ItoC [N, 3, 3], p_IinC [N, 3]) from a configuration's
+    `calib` dict: `intr` [N, 8], `rot` [N, 3] (each camera's R_ItoC as
+    exp_so3 of the vector) and `p` [N, 3]."""
+    dev = resolve_device(device)
+    rot = torch.as_tensor(calib["rot"], dtype=torch.float32, device=dev)
+    return (torch.as_tensor(calib["intr"], dtype=torch.float32, device=dev),
+            lie.exp_so3(rot),
+            torch.as_tensor(calib["p"], dtype=torch.float32, device=dev))
 
 
 def staging_digest(run: SimRun) -> dict:

@@ -8,6 +8,16 @@ scans the step with `lax.scan`; here a Python loop calls
 come from the port's simulator (`stage_run`) or from a staged-run file
 (`open_vins_tpu_torch/convert.py`).
 
+`run_filter_rendered` is the images->pose pipeline (runner.py:145-289 of
+the reference): every frame the simulator's map is rendered into camera
+images (`sim.render`), tracked by the KLT front end with fundamental-matrix
+RANSAC (`frontend.tracker`), and the tracker's packets replace the staged
+TrackSIM measurements in `manager.step_frame`.  `run_tracker_rendered`,
+`render_frames` and `run_tracker_staged` are its front-end-only parts (the
+bench's render and tracker metrics, bench.py:284-380).  The RANSAC
+hypotheses come from a given `sets_of`, else from a `torch.Generator` on the
+run's device seeded with 0.
+
 `stage_ensemble` and `run_ensemble` are the bench's seed ensemble
 (bench.py:227-282): B streams of one configuration, one seed each, stepped
 frame by frame as one batched step, `manager.step_frame` under
@@ -27,12 +37,14 @@ import torch.utils._pytree as pytree
 from open_vins_tpu_torch import resolve_device
 from open_vins_tpu_torch.core.layout import FilterConfig
 from open_vins_tpu_torch.core.state import TensorRecord
+from open_vins_tpu_torch.frontend import ransac
+from open_vins_tpu_torch.frontend import tracker as tracker_mod
 from open_vins_tpu_torch.models import feature_table as ft
 from open_vins_tpu_torch.models import manager
 from open_vins_tpu_torch.models import triangulation as tri
 from open_vins_tpu_torch.models.propagator import ImuWindow
 from open_vins_tpu_torch.ops import lie
-from open_vins_tpu_torch.sim import simulator
+from open_vins_tpu_torch.sim import render, simulator
 
 
 @dataclasses.dataclass
@@ -139,6 +151,130 @@ def run_filter(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
                                                 frame_at(run.frames, k))
         outs.append(_per_frame(state, diag))
     return state, stack_records(outs)
+
+
+def track_images(tstate, imgs, cam_intr, params: simulator.SimParams,
+                 klt_params, first, hist_method, sets_of):
+    """The KLT front end on the images [C, H, W] of one frame: (tstate,
+    ids [C, P], uv, uvn, mask) in FrameInput layout."""
+    if params.num_cams >= 2:
+        return tracker_mod.track_frame_multi(
+            tstate, imgs, cam_intr, klt_params, sets_of,
+            cam_model=params.cam_model, first_frame=first,
+            hist_method=hist_method)
+    tstate, ids, uv, uvn, mask = tracker_mod.track_frame(
+        tstate, imgs[0], cam_intr[0], klt_params, sets_of,
+        cam_model=params.cam_model, first_frame=first,
+        hist_method=hist_method)
+    return tstate, ids[None], uv[None], uvn[None], mask[None]
+
+
+def render_and_track(tstate, sim, params, klt_params, k, first,
+                     hist_method, sets_of):
+    """Render every camera at frame k and track the images."""
+    imgs = render.render(sim, params, [k])[0]
+    return track_images(tstate, imgs, sim.cam_intr, params, klt_params,
+                        first, hist_method, sets_of)
+
+
+def start_tracker(cam_intr, params, klt_params, hist_method, sets_of,
+                  imgs0):
+    """A tracker primed on the images [C, H, W] of frame 0 (the initial
+    state's frame): detection only."""
+    tstate = tracker_mod.init_tracker(params.height, params.width,
+                                      klt_params.num_features,
+                                      device=cam_intr.device)
+    tstate, *_ = track_images(tstate, imgs0, cam_intr, params, klt_params,
+                              True, hist_method, sets_of)
+    return tstate
+
+
+def run_filter_rendered(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
+                        sim: simulator.SimData, params: simulator.SimParams,
+                        run: SimRun, klt_params, max_tracks: int = 256,
+                        hist_method: str = "STRETCH", sets_of=None,
+                        device=None):
+    """The images->pose pipeline on `device` (None = CUDA): start from
+    groundtruth at frame 0, prime the tracker on frame 0's images, then per
+    frame render every camera, track, and step the filter on the tracker's
+    packets (the reference's serial image replay,
+    ros1_serial_msckf.cpp:210-278).
+
+    Returns ((state, table, tracker state), per-frame (q, p, v,
+    cov[:6,:6], diag, tracked)) stacked over frames: `tracked` is the
+    number of valid tracks in the frame's packet over all cameras."""
+    dev = resolve_device(device)
+    sim, run = _to(sim, dev), _to(run, dev)
+    if sets_of is None:  # the reference init_tracker's default key, 0
+        sets_of = ransac.sampler(torch.Generator(device=dev).manual_seed(0))
+    state = _initial_state(cfg, sim_calib(sim), run)
+    table = ft.init_table(cfg, max_tracks, dev)
+    tstate = start_tracker(sim.cam_intr, params, klt_params, hist_method,
+                           sets_of, render.render(sim, params, [0])[0])
+    outs = []
+    for k in range(1, run.frames.t_new.shape[0] + 1):
+        tstate, ids, uv, uvn, mask = render_and_track(
+            tstate, sim, params, klt_params, k, False, hist_method, sets_of)
+        frame = frame_at(run.frames, k - 1).replace(ids=ids, uv=uv, uvn=uvn,
+                                                    mask=mask)
+        state, table, diag = manager.step_frame(state, table, cfg, tri_opts,
+                                                frame)
+        outs.append(_per_frame(state, diag) + (mask.sum(),))
+    return (state, table, tstate), stack_records(outs)
+
+
+def run_tracker_rendered(sim: simulator.SimData, params: simulator.SimParams,
+                         klt_params, n_frames: int,
+                         hist_method: str = "STRETCH", sets_of=None,
+                         device=None):
+    """The front end alone: render and track `n_frames` frames (no
+    filter).  Returns (final tracker state, per-frame track counts over all
+    cameras [n_frames - 1]) — bench.py's `klt_track_frames_per_sec_1chip`
+    unit."""
+    dev = resolve_device(device)
+    sim = _to(sim, dev)
+    if sets_of is None:  # the reference init_tracker's default key, 0
+        sets_of = ransac.sampler(torch.Generator(device=dev).manual_seed(0))
+    tstate = start_tracker(sim.cam_intr, params, klt_params, hist_method,
+                           sets_of, render.render(sim, params, [0])[0])
+    counts = []
+    for k in range(1, n_frames):
+        tstate, _, _, _, mask = render_and_track(
+            tstate, sim, params, klt_params, k, False, hist_method, sets_of)
+        counts.append(torch.sum(mask.to(torch.int32)))
+    return tstate, torch.stack(counts)
+
+
+def render_frames(sim: simulator.SimData, params: simulator.SimParams,
+                  n_frames: int, device=None):
+    """Every camera's images of frames 0..n_frames-1, [n_frames, C, H, W],
+    rendered as one batched call (the render half of the front end's cost,
+    bench.py's `frontend_render_ms_per_frame`)."""
+    dev = resolve_device(device)
+    sim = _to(sim, dev)
+    return render.render(sim, params, torch.arange(n_frames, device=dev))
+
+
+def run_tracker_staged(imgs, sim, params: simulator.SimParams, klt_params,
+                       hist_method: str = "STRETCH", sets_of=None,
+                       device=None):
+    """The tracker alone over given images [K, C, H, W] (the role of camera
+    frames arriving from a sensor): frame 0 primes it, frames 1.. are
+    tracked.  `sim` gives the intrinsics (`cam_intr`).  Returns (final
+    tracker state, per-frame track counts over all cameras [K - 1])."""
+    dev = resolve_device(device)
+    imgs, cam_intr = imgs.to(dev), sim.cam_intr.to(dev)
+    if sets_of is None:  # the reference init_tracker's default key, 0
+        sets_of = ransac.sampler(torch.Generator(device=dev).manual_seed(0))
+    tstate = start_tracker(cam_intr, params, klt_params, hist_method,
+                           sets_of, imgs[0])
+    counts = []
+    for k in range(1, imgs.shape[0]):
+        tstate, _, _, _, mask = track_images(
+            tstate, imgs[k], cam_intr, params, klt_params, False,
+            hist_method, sets_of)
+        counts.append(torch.sum(mask.to(torch.int32)))
+    return tstate, torch.stack(counts)
 
 
 def stage_ensemble(params: simulator.SimParams, seeds, device=None):

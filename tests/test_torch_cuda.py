@@ -285,3 +285,48 @@ def test_cuda_ensemble_step_matches_single_streams():
             assert gap <= (5e-5 if new else 1e-5) * norm, (k, b, gap / norm)
             assert torch.equal(post[1].ids[b], one[1].ids)
         state, table = post[0], post[1]
+
+
+@pytest.mark.cuda
+def test_cuda_front_end_matches_cpu():
+    """The renderer and the stereo KLT tracker on the card against the
+    same code on the CPU, on one 320x240 stream built on the CPU (a stream
+    staged on each device differs by up to 1e-3 px in its projections):
+    images within 5e-5 (each device's f32 image is within about 2e-5 of a
+    float64 evaluation, tests/test_torch_render.py, so two differ by up to
+    twice that; 3.1e-5 was seen), every frame's ids and masks equal and
+    points within 1e-3 px, both drawing the same RANSAC sets (from one CPU
+    generator each, seeded alike)."""
+    _need_gpu()
+    import torch.utils._pytree as pytree
+
+    from open_vins_tpu_torch.frontend import klt, ransac
+
+    params = simulator.SimParams(num_cams=2, num_pts=40, map_size=256,
+                                 duration=0.25, width=320, height=240,
+                                 min_depth=4.0, max_depth=9.0)
+    kp = klt.KltParams(num_pyr=4, win=7, iters=12, num_features=40,
+                       grid_x=8, grid_y=6)
+    sim_cpu = simulator.build(params, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sim = pytree.tree_map(lambda v, dev=dev: v.to(dev), sim_cpu)
+        gen = torch.Generator().manual_seed(3)
+        sets_of = (lambda mask, gen=gen, dev=dev: ransac.draw_sets(
+            mask.cpu(), gen).to(dev))
+        imgs = runner.render_frames(sim, params, 5, device=dev)
+        tstate = runner.start_tracker(sim.cam_intr, params, kp, "STRETCH",
+                                      sets_of, imgs[0])
+        packets = []
+        for k in range(1, 5):
+            tstate, *pk = runner.track_images(tstate, imgs[k], sim.cam_intr,
+                                              params, kp, False, "STRETCH",
+                                              sets_of)
+            packets.append([np_of(x) for x in pk])
+        out[dev] = (np_of(imgs), packets)
+    assert abs(out["cuda"][0] - out["cpu"][0]).max() <= 5e-5
+    for k, (got, want) in enumerate(zip(out["cuda"][1], out["cpu"][1])):
+        (ids, uv, _, mask), (ids0, uv0, _, mask0) = got, want
+        assert (mask == mask0).all() and (ids == ids0).all(), k
+        assert abs(uv[mask] - uv0[mask]).max() <= 1e-3, k
+        assert mask.sum() > 30, k

@@ -69,6 +69,30 @@ own, each a file like the operating point's:
 
 `test_forms_refs_match_fresh_run` and `test_sim_refs_match_fresh_run`
 (slow) re-derive them.
+
+`open_vins_tpu_torch/data/rendered_stereo8_seed0_ref.npz` holds the JAX
+references of bench.py's rendered 752x480 stereo pipeline
+(bench.py:284-380), all on the port's CPU staging of its stream
+(`RENDERED_META`, sigma_pix 0; no images are stored): the staging digest;
+JAX's per-frame render moments of both cameras (sum, sum of squares,
+Σx·I, Σy·I; `render_frame` on a JAX SimData built from the port's
+simulator); the hypothesis sets of every RANSAC call of JAX's tracker over
+the pipeline's first 40 frames, in call order, with its packets' ids,
+points and masks (`ref_replay_*`, `jax_tracker_recorded`: the card replays
+the sets and is held to the packets);
+`run_tracker_staged`'s per-frame counts on the port's CPU-rendered images
+of the first 120 frames; the descriptor tracker's inherited ids per frame
+on the first 40 left-eye images, as the JAX package has it and with the
+matched-rows id scatter the port implements
+(`test_torch_tracker.jax_desc_track_frame_matched_scatter`);
+`run_filter_rendered`'s poses, counts, RMSE and NEES, and the same
+pipeline with the tracker's PRNG seeded 1 (`ref_seed1_*`, a test-side
+copy of its loop: the RMSE gap between the two is the pipeline's own
+spread); and JAX's `run_filter` on the same stream's TrackSIM frames with
+pixel noise (`ref_tracksim_*`, the stereo estimator's check).  Write it
+with ``python tests/test_torch_fixture.py --write-rendered-ref`` (JAX and
+the port on the CPU, about four minutes); `test_rendered_ref_matches_fresh_run`
+(slow) re-derives it.
 """
 
 from __future__ import annotations
@@ -141,6 +165,30 @@ ZUPT_META = {"sim": SIM, "traj": {"stop_and_go": {"dt": 0.1}},
              "cfg": dict(OPPOINT_CFG, use_zupt=True, zupt_max_velocity=0.2,
                          zupt_max_disparity=3.0),
              "max_tracks": MAX_TRACKS}
+RENDERED_REF = os.path.join(ROOT, "open_vins_tpu_torch", "data",
+                            "rendered_stereo8_seed0_ref.npz")
+# bench.py:292-357: the rendered 752x480 stereo images->pose pipeline on the
+# sine trajectory (udel_gore.txt is not in the repository, bench.py:100-102)
+RENDERED_META = {
+    "sim": dict(imu_rate=200.0, cam_rate=20.0, num_cams=2, num_pts=200,
+                map_size=2048, duration=8.0, sigma_pix=0.0, start_offset=3.0,
+                width=752, height=480, min_depth=4.0, max_depth=9.0),
+    "traj": None, "seed": SEED,
+    "calib": {"intr": [[458.0, 458.0, 376.0, 240.0, 0.0, 0.0, 0.0, 0.0]] * 2,
+              "rot": [[-1.2, 1.2, -1.2]] * 2,
+              "p": [[0.0, -0.01, 0.02], [0.11, -0.01, 0.02]]},
+    "cfg": dict(max_clones=11, max_slam=25, num_cams=2,
+                max_msckf_in_update=40, integration="analytical"),
+    "max_tracks": 384,
+    "klt": dict(num_features=200, num_pyr=4, grid_x=20, grid_y=15),
+    "tracker_frames": 120, "descriptor_frames": 40,
+    # the first frames of the pipeline with JAX's RANSAC sets recorded, so
+    # that the card replays them and is held to JAX's packets and poses
+    "replay_frames": 40,
+    # the same stream's TrackSIM frames with pixel noise: the stereo
+    # estimator's check before any image code
+    "tracksim_sigma_pix": 1.0,
+}
 V102_TRUTH = "results/suite/truths/V1_02_medium.txt"
 V102_T_RUN = 40.0
 
@@ -471,6 +519,252 @@ def write_ensemble_reference(path=ENSEMBLE_REF, meta=ENSEMBLE_META):
            if k != "ref_p"}}))
 
 
+def tracksim_meta(meta=RENDERED_META):
+    """The rendered stream's TrackSIM staging: the same map and motion with
+    pixel noise."""
+    return dict(meta, sim=dict(meta["sim"],
+                               sigma_pix=meta["tracksim_sigma_pix"]))
+
+
+def jax_sim_of_port(sim):
+    """The JAX package's SimData built from the port's simulator (spline,
+    map, calibration, start time, bias walks; the noise keys are unused
+    by rendering and by the rendered runs)."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.sim import bspline, simulator
+
+    a = {k: jnp.asarray(v.numpy()) for k, v in sim.items()
+         if k != "spline"}
+    key = jax.random.PRNGKey(0)
+    return simulator.SimData(
+        spline=bspline.Bspline(**{k: jnp.asarray(v.numpy())
+                                  for k, v in sim.spline.items()}),
+        map_pts=a["map_pts"], cam_intr=a["cam_intr"],
+        cam_R_ItoC=a["cam_R_ItoC"], cam_p_IinC=a["cam_p_IinC"],
+        calib_dt=a["calib_dt"], bias_g_traj=a["bias_g_traj"],
+        bias_a_traj=a["bias_a_traj"], gravity=a["gravity"],
+        t_start=a["t_start"], key_w=key, key_a=key, key_pix=key)
+
+
+def jax_run_of_port(run_t):
+    """The JAX package's SimRun holding the port's staged frames."""
+    from open_vins_tpu.models import manager, runner
+    from open_vins_tpu.models.propagator import ImuWindow
+    from open_vins_tpu_torch import convert
+
+    a = convert.run_to_numpy(run_t)
+    frames = manager.FrameInput(
+        win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    return runner.SimRun(frames=frames, gt_q=a["gt_q"], gt_p=a["gt_p"],
+                         gt_v=a["gt_v"])
+
+
+def jax_run_filter_rendered_seeded(cfg, tri_opts, sim, params, run,
+                                   klt_params, max_tracks, tracker_seed):
+    """runner.py:167-214 of the JAX package (`run_filter_rendered`) with
+    the tracker's PRNG seeded `tracker_seed` instead of 0."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.frontend import tracker
+    from open_vins_tpu.models import feature_table as jft
+    from open_vins_tpu.models import manager, runner
+
+    state = manager.initialize_from_gt(
+        cfg, run.gt_q[0], run.gt_p[0], run.gt_v[0], sim.bias_g_traj[0],
+        sim.bias_a_traj[0], jnp.asarray(0.0),
+        calib_ext_q=jax.vmap(runner._rot2q)(sim.cam_R_ItoC),
+        calib_ext_p=sim.cam_p_IinC, calib_intr=sim.cam_intr)
+    table = jft.init_table(cfg, max_tracks)
+    tstate = tracker.init_tracker(params.height, params.width,
+                                  klt_params.num_features, seed=tracker_seed)
+    tstate, *_ = runner._render_and_track(tstate, sim, params, klt_params,
+                                          jnp.asarray(0), True, "STRETCH")
+
+    def body(carry, inp):
+        st, tb, trk = carry
+        fr, k = inp
+        trk, ids, uv, uvn, mask = runner._render_and_track(
+            trk, sim, params, klt_params, k, False, "STRETCH")
+        fr = fr._replace(ids=ids, uv=uv, uvn=uvn, mask=mask)
+        st, tb, diag = manager.step_frame(st, tb, cfg, tri_opts, fr)
+        return (st, tb, trk), (st.q, st.p, st.v, st.cov[:6, :6], diag)
+
+    n = run.frames.t_new.shape[0]
+    (state, table, tstate), outs = jax.lax.scan(
+        body, (state, table, tstate), (run.frames, jnp.arange(1, n + 1)))
+    return (state, table, tstate), outs
+
+
+def jax_tracker_recorded(sim, params, kp, n):
+    """JAX's tracker as `run_filter_rendered` runs it (primed on frame 0,
+    then frames 1..n), recording the hypothesis sets of every RANSAC call
+    in call order: `ransac_fundamental` is wrapped to draw the same Gumbel
+    top-k from its key and hand it to a host callback before deciding as
+    before.  Returns (sets [calls, 64, 8], ids [n, C, P], uv [n, C, P, 2],
+    mask [n, C, P]) as numpy."""
+    from unittest import mock
+
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.frontend import ransac as jransac
+    from open_vins_tpu.frontend import tracker as jtracker
+    from open_vins_tpu.models import runner as jrun
+    from test_torch_frontend import draw_jax_sets
+
+    calls = []
+    decide = jransac.ransac_fundamental
+
+    def recorded(p0, p1, mask, key, thresh, num_hyp=64):
+        jax.debug.callback(lambda s: calls.append(np.asarray(s)),
+                           draw_jax_sets(key, mask, num_hyp),
+                           ordered=True)
+        return decide(p0, p1, mask, key, thresh, num_hyp)
+
+    # the tracker's jitted steps are traced anew with the wrapper, and
+    # afterwards without it
+    jax.clear_caches()
+    with mock.patch.object(jransac, "ransac_fundamental", recorded):
+        step = jax.jit(lambda ts, k, first: jrun._render_and_track(
+            ts, sim, params, kp, k, first, "STRETCH"), static_argnums=2)
+        ts = jtracker.init_tracker(params.height, params.width,
+                                   kp.num_features)
+        ts, *_ = step(ts, jnp.asarray(0), True)
+        packets = []
+        for k in range(1, n + 1):
+            ts, ids, uv, _, mask = step(ts, jnp.asarray(k), False)
+            packets.append((np.asarray(ids), np.asarray(uv),
+                            np.asarray(mask)))
+        jax.effects_barrier()
+    jax.clear_caches()
+    return (np.stack(calls), *(np.stack(x) for x in zip(*packets)))
+
+
+def jax_rendered_references(meta=RENDERED_META):
+    """The port's CPU staging of the rendered stream and every JAX
+    reference of the rendered phases on it: (digest, arrays)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from open_vins_tpu.core.layout import FilterConfig
+    from open_vins_tpu.frontend import descriptor as jdesc
+    from open_vins_tpu.frontend import klt as jklt
+    from open_vins_tpu.models import runner as jrun
+    from open_vins_tpu.models import triangulation as jtri
+    from open_vins_tpu.sim import render as jrender
+    from open_vins_tpu.sim import simulator as jsimulator
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.models import runner as trun
+
+    sim_t, params_t, run_t = convert.stage_stream(meta, "cpu")
+    params = jsimulator.SimParams(**meta["sim"])
+    sim, run = jax_sim_of_port(sim_t), jax_run_of_port(run_t)
+    kp = jklt.KltParams(**meta["klt"])
+    n_frames = jsimulator.n_cam_frames(params)
+    out = {}
+
+    from chip_smoke import RENDER_MOMENTS, render_moments
+
+    # per-frame render moments of both cameras (float64)
+    rend = jax.jit(lambda s, k, c: jrender.render_frame(s, params, k, cam=c),
+                   static_argnums=2)
+    moments = np.stack([np.stack([
+        render_moments(np.asarray(rend(sim, k, c), np.float64))
+        for c in range(params.num_cams)]) for k in range(n_frames)])
+    for i, name in enumerate(RENDER_MOMENTS):
+        out[f"ref_render_{name}"] = moments[..., i]
+
+    # the tracker alone on the port's CPU-rendered images
+    n_trk = meta["tracker_frames"]
+    imgs_t = trun.render_frames(sim_t, params_t, n_trk, device="cpu")
+    _, counts = jax.jit(lambda im: jrun.run_tracker_staged(
+        im, sim, params, kp))(jnp.asarray(imgs_t.numpy()))
+    out["ref_tracker_counts"] = np.asarray(counts)
+
+    # the descriptor tracker on the left eye's first frames: as the JAX
+    # package has it, and with the inherited ids scattered from the matched
+    # rows only (the port's semantics; test_torch_tracker.py's copy)
+    from test_torch_tracker import jax_desc_track_frame_matched_scatter
+
+    from chip_smoke import inherited_counts
+
+    for key, fn in (("desc", jdesc.track_frame),
+                    ("desc_matched_scatter",
+                     jax_desc_track_frame_matched_scatter)):
+        step = jax.jit(fn, static_argnames=("params", "first_frame"))
+        dst = jdesc.init_tracker(kp.num_features)
+        d_ids, d_valid = [], []
+        for k in range(meta["descriptor_frames"]):
+            dst, ids, _, _, valid = step(
+                dst, jnp.asarray(imgs_t[k, 0].numpy()), sim.cam_intr[0], kp,
+                first_frame=k == 0)
+            d_ids.append(np.asarray(ids))
+            d_valid.append(np.asarray(valid))
+        out[f"ref_{key}_counts"] = np.asarray(inherited_counts(
+            np.stack(d_ids), np.stack(d_valid)))
+    del imgs_t
+
+    # the tracker's first frames with JAX's hypothesis sets recorded
+    sets, ids, uv, mask = jax_tracker_recorded(sim, params, kp,
+                                               meta["replay_frames"])
+    out.update(ref_replay_sets=sets.astype(np.int16), ref_replay_ids=ids,
+               ref_replay_uv=uv, ref_replay_mask=mask)
+
+    # the images->pose pipeline, and the same with the tracker seeded 1
+    cfg = FilterConfig(**meta["cfg"])
+    tri_opts = jtri.TriangulationOptions()
+    for key, fn in (("", lambda s, r: jrun.run_filter_rendered(
+            cfg, tri_opts, s, params, r, kp,
+            max_tracks=meta["max_tracks"])),
+                    ("seed1_", lambda s, r: jax_run_filter_rendered_seeded(
+                        cfg, tri_opts, s, params, r, kp, meta["max_tracks"],
+                        1))):
+        (state, _, _), outs = jax.jit(fn)(sim, run)
+        qs, ps, covs6 = (np.asarray(outs[0]), np.asarray(outs[1]),
+                         np.asarray(outs[3]))
+        rmse, nees = trun.pose_metrics(
+            *(torch.as_tensor(x) for x in (qs, ps, covs6)), run_t.gt_q,
+            run_t.gt_p)
+        diag = outs[4]
+        out.update({
+            f"ref_{key}p": ps, f"ref_{key}q": qs,
+            f"ref_{key}rmse": np.float64(rmse),
+            f"ref_{key}nees": np.float64(nees),
+            f"ref_{key}n_tracks": np.asarray(diag.n_tracks),
+            f"ref_{key}n_msckf": np.asarray(diag.n_msckf),
+            f"ref_{key}n_slam": np.asarray(diag.n_slam),
+            f"ref_{key}n_slam_used": np.asarray(diag.n_slam_used),
+            f"ref_{key}finite": np.bool_(
+                np.isfinite(np.asarray(state.cov)).all())})
+
+    # the stereo estimator on the same stream's TrackSIM frames
+    _, _, ts = jax_run_on_port_stream(tracksim_meta(meta))
+    out.update({f"ref_tracksim_{k[4:]}": v for k, v in ts.items()})
+    return convert.staging_digest(run_t), out
+
+
+def write_rendered_reference(path=RENDERED_REF, meta=RENDERED_META):
+    digest, ref = jax_rendered_references(meta)
+    np.savez_compressed(path, **ref,
+                        **{f"digest_{k}": v for k, v in digest.items()},
+                        meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({
+        "path": path, "bytes": os.path.getsize(path),
+        **{k: float(v) for k, v in ref.items() if v.ndim == 0},
+        "tracker_counts_mean": float(ref["ref_tracker_counts"].mean()),
+        "desc_counts_mean": float(ref["ref_desc_counts"].mean()),
+        "desc_matched_scatter_counts_mean": float(
+            ref["ref_desc_matched_scatter_counts"].mean()),
+        "n_slam_mean": float(ref["ref_n_slam"].mean()),
+        "seed1_n_slam_mean": float(ref["ref_seed1_n_slam"].mean())}))
+
+
 def _cfg_dim(cfg):
     from open_vins_tpu_torch.core.layout import FilterConfig
 
@@ -534,6 +828,40 @@ def test_fixture_matches_fresh_staging():
         assert np.isfinite(z["ref_rmse"]) and np.isfinite(z["ref_nees"])
 
 
+@pytest.mark.slow
+def test_rendered_ref_matches_fresh_run():
+    """The committed rendered reference equals a fresh derivation: the
+    port's CPU staging reproduces the digest, JAX's render moments agree to
+    1e-6 relative, its tracker and descriptor counts and its recorded
+    hypothesis sets, ids and masks exactly, its packets' points to 1e-4 px
+    and its pipelines' positions to 1e-4 m."""
+    from open_vins_tpu_torch import convert
+
+    ref = convert.load_reference(RENDERED_REF)
+    assert ref["meta"] == json.loads(json.dumps(RENDERED_META))
+    digest, fresh = jax_rendered_references(RENDERED_META)
+    for k, v in digest.items():
+        want = ref[f"digest_{k}"]
+        if v.dtype.kind in "biu":
+            np.testing.assert_array_equal(v, want, err_msg=k)
+        else:
+            np.testing.assert_allclose(v, want, rtol=0, atol=1e-5,
+                                       err_msg=k)
+    for k, v in fresh.items():
+        if (k.endswith("counts") or k.startswith("ref_n_") or "_n_" in k
+                or (k.startswith("ref_replay") and v.dtype.kind in "biu")):
+            np.testing.assert_array_equal(v, ref[k], err_msg=k)
+        elif k == "ref_replay_uv":
+            np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-4,
+                                       err_msg=k)
+        elif k.startswith("ref_render"):
+            np.testing.assert_allclose(v, ref[k], rtol=1e-6, err_msg=k)
+        elif k.endswith("_p") or k.endswith("_q"):
+            np.testing.assert_allclose(v, ref[k], rtol=0, atol=1e-4,
+                                       err_msg=k)
+    assert ref["ref_finite"] and ref["ref_seed1_finite"]
+
+
 def zupt_frames(n_msckf, n_slam_used, first=30):
     """Frames consumed by a ZUPT from frame `first` on: no MSCKF feature and
     no landmark used (tests/test_slam_stack.py:120-124)."""
@@ -579,7 +907,7 @@ def test_stop_and_go_copy_matches_test_slam_stack():
 if __name__ == "__main__":
     if {"--write", "--write-oppoint", "--write-sim-refs",
             "--write-ensemble-ref", "--write-forms-ref",
-            "--write-zupt-ref"} & set(sys.argv):
+            "--write-zupt-ref", "--write-rendered-ref"} & set(sys.argv):
         import jax
 
         # stage on the CPU, as the tests re-stage it
@@ -598,5 +926,7 @@ if __name__ == "__main__":
             write_forms_references()
         if "--write-zupt-ref" in sys.argv:
             write_sim_reference(ZUPT_REF, ZUPT_META)
+        if "--write-rendered-ref" in sys.argv:
+            write_rendered_reference()
     else:
         print(__doc__)

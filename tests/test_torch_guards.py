@@ -47,6 +47,11 @@ def test_port_imports_no_jax():
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"the port must not import JAX or its package: {bad}"
     assert len(_port_sources()) >= 16
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for module in ("frontend/klt.py", "frontend/ransac.py",
+                   "frontend/tracker.py", "frontend/descriptor.py",
+                   "sim/render.py"):
+        assert f"open_vins_tpu_torch/{module}" in names, module
 
 
 def test_entry_points_default_to_cuda():
@@ -70,6 +75,33 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trajectories.load_trajectory_file(
             ROOT / "results" / "suite" / "truths" / "V1_02_medium.txt")
+
+
+def test_front_end_entry_points_default_to_cuda():
+    """The front end's entry points: device=None means CUDA."""
+    if torch.cuda.is_available():
+        return
+    from open_vins_tpu_torch.frontend import descriptor, klt, tracker
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tracker.init_tracker(48, 64, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        descriptor.init_tracker(8)
+    params = simulator.SimParams(num_pts=4, map_size=8, duration=0.2,
+                                 width=64, height=48)
+    sim = simulator.build(params, device="cpu")
+    run = runner.stage_run(sim, params)
+    kp = klt.KltParams(num_pyr=2, win=3, num_features=8, grid_x=2, grid_y=2)
+    cfg = FilterConfig(max_clones=3, max_slam=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.render_frames(sim, params, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.run_tracker_staged(torch.zeros(2, 1, 48, 64), sim, params, kp)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.run_tracker_rendered(sim, params, kp, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.run_filter_rendered(cfg, tri.TriangulationOptions(), sim,
+                                   params, run, kp)
 
 
 def _run_smoke(cwd, env):

@@ -8,6 +8,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
+import pytest
 import torch
 
 from open_vins_tpu_torch import convert
@@ -16,6 +17,18 @@ CPU = "cpu"
 STACK_ZERO_IMU = 15  # the IMU block: zero columns of every joint stack
 FIXTURE = (Path(__file__).resolve().parents[1] / "open_vins_tpu_torch"
            / "data" / "msckf_sim20_seed0.npz")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The test's torch CPU work on one thread: the suite runs several
+    workers at once, and eager loops of small operations gain little from
+    threads but lose much when the workers' threads oversubscribe the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tree_to_numpy(nt) -> dict:

@@ -2,7 +2,8 @@
 
     python tools/torch_main_path_profile.py
         [--config msckf|oppoint|woodbury|spd|newton|sequential|zupt|
-                  largemap|replay|ensemble8] [--warm 40] [--frames 40]
+                  largemap|replay|ensemble8|rendered|tracker]
+        [--warm 40] [--frames 40]
 
 Steps a closed loop (`models/manager.step_frame`) through `--warm` frames,
 then traces the next `--frames` frames with `torch.profiler` and prints one
@@ -33,8 +34,13 @@ card by the port's simulator from the configuration of
 (`ensemble8_sim20_ref.npz`), staged by `runner.stage_ensemble` and stepped
 by `runner.ensemble_step` (one batched step per frame for all 8 streams,
 so "per frame" means per batched frame of 8 stream frames; delayed init
-selects on the device and reads no flag).  Needs a CUDA device; the card's
-name and power limit are printed with the numbers.
+selects on the device and reads no flag).  `rendered` is bench.py's
+images->pose pipeline (752x480 stereo, `rendered_stereo8_seed0_ref.npz`,
+staged on the card): every frame renders both cameras, tracks them
+(`runner.render_and_track`) and steps the filter on the tracker's packets;
+`tracker` is the tracker alone (`runner.track_images`) on the same stream's
+images rendered up front.  Needs a CUDA device; the card's name and power
+limit are printed with the numbers.
 """
 
 from __future__ import annotations
@@ -58,8 +64,9 @@ from open_vins_tpu_torch.models import feature_table as ft  # noqa: E402
 from open_vins_tpu_torch.models import manager, runner  # noqa: E402
 from open_vins_tpu_torch.models import triangulation as tri  # noqa: E402
 from open_vins_tpu_torch.models import updater_slam  # noqa: E402
+from open_vins_tpu_torch.frontend import klt, ransac  # noqa: E402
 from open_vins_tpu_torch.ops import kernels, lie  # noqa: E402
-from open_vins_tpu_torch.sim import simulator  # noqa: E402
+from open_vins_tpu_torch.sim import render, simulator  # noqa: E402
 
 DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
@@ -74,6 +81,7 @@ FRAME_REFS = {"oppoint": OPPOINT_REF,
               **{form: os.path.join(DATA, f"oppoint_{form}_sim20_seed0_ref.npz")
                  for form in ("woodbury", "spd", "newton")}}
 ZUPT_REF = os.path.join(DATA, "zupt_stopgo20_seed0_ref.npz")
+RENDERED_REF = os.path.join(DATA, "rendered_stereo8_seed0_ref.npz")
 FLAG_READS = {"init": updater_slam.INIT_FLAG_READ,
               "zupt": manager.ZUPT_FLAG_READ}
 
@@ -95,13 +103,54 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="msckf",
                     choices=("msckf", *FRAME_REFS, "zupt", "largemap",
-                             "replay", "ensemble8"))
+                             "replay", "ensemble8", "rendered", "tracker"))
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--frames", type=int, default=40)
     args = ap.parse_args()
 
     opts = tri.TriangulationOptions()
-    if args.config == "ensemble8":
+    tracked = []  # the front end's valid tracks per traced frame
+    if args.config in ("rendered", "tracker"):
+        ref = convert.load_reference(RENDERED_REF)
+        meta = ref["meta"]
+        cfg = FilterConfig(**meta["cfg"])
+        kp = klt.KltParams(**meta["klt"])
+        sim, params, run = convert.stage_stream(meta, "cuda")
+        sets_of = ransac.sampler(torch.Generator(device="cuda").manual_seed(
+            0))
+        if args.config == "tracker":
+            imgs = runner.render_frames(sim, params,
+                                        simulator.n_cam_frames(params),
+                                        device="cuda")
+            tstate = runner.start_tracker(sim.cam_intr, params, kp,
+                                          "STRETCH", sets_of, imgs[0])
+
+            def step(k):
+                nonlocal tstate
+                tstate, _, _, _, mask = runner.track_images(
+                    tstate, imgs[k + 1], sim.cam_intr, params, kp, False,
+                    "STRETCH", sets_of)
+                tracked.append(mask.sum())
+                return None
+        else:
+            state = runner._initial_state(cfg, runner.sim_calib(sim), run)
+            table = ft.init_table(cfg, meta["max_tracks"], "cuda")
+            tstate = runner.start_tracker(
+                sim.cam_intr, params, kp, "STRETCH", sets_of,
+                render.render(sim, params, [0])[0])
+
+            def step(k):
+                nonlocal state, table, tstate
+                tstate, ids, uv, uvn, mask = runner.render_and_track(
+                    tstate, sim, params, kp, k + 1, False, "STRETCH",
+                    sets_of)
+                frame = runner.frame_at(run.frames, k).replace(
+                    ids=ids, uv=uv, uvn=uvn, mask=mask)
+                state, table, diag = manager.step_frame(state, table, cfg,
+                                                        opts, frame)
+                tracked.append(mask.sum())
+                return diag
+    elif args.config == "ensemble8":
         ref = convert.load_reference(ENSEMBLE_REF)
         meta = ref["meta"]
         cfg = FilterConfig(**meta["cfg"])
@@ -201,10 +250,14 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     def mean(key):
+        if diags[0] is None:  # the tracker alone
+            return None
         return float(torch.stack([getattr(d, key) for d in diags])
                      .float().mean())
 
     def largest(key):
+        if diags[0] is None:
+            return None
         return float(torch.stack([getattr(d, key) for d in diags]).max())
 
     print(json.dumps({
@@ -215,6 +268,8 @@ def main():
         "nvidia_smi": smi, "frames": n, "first_frame": args.warm,
         "n_msckf_mean": mean("n_msckf"), "n_slam_mean": mean("n_slam"),
         "n_slam_used_mean": mean("n_slam_used"),
+        "tracks_per_frame": (float(torch.stack(tracked[-2 * n:-n]).float()
+                                   .mean()) if tracked else None),
         "host_ms_per_frame": 1e3 * plain_wall_s / n,
         "traced_host_ms_per_frame": 1e3 * wall_s / n,
         "gpu_kernels_per_frame": len(gpu) / n,
