@@ -10,12 +10,14 @@ trajectory files and the seeded simulator, whose random numbers come from
 numpy's PCG64 so that one seed stages the same stream on the CPU and the
 card) and runs the closed-loop filter on them: `models.runner.run_filter`
 calls `models.manager.step_frame` once per camera frame, and
-`run_filter_from` starts from a given state.  It covers OpenVINS's
+`run_filter_from` starts from a given state, which `runner.auto_init_state`
+finds by the reference's own routed initialization (`init/`: static,
+dynamic, the router, the background initializer).  It covers OpenVINS's
 MSCKF-only mode (`max_slam=0`) and the bench's operating point: SLAM
-landmarks in GLOBAL_3D or one of the anchored and inverse-depth
-representations (`models.landmark_rep`, with `change_anchors`), the joint
-batched delayed init, the joint "qr" vision update, and the rk4, discrete
-or analytical (ACI²) integrators.  `runner.run_ensemble` runs bench.py's
+landmarks in any of the six representations (`models.landmark_rep`, with
+`change_anchors`) and aruco landmarks, the joint batched delayed init,
+every joint update form and the sequential ordering, ZUPT, and the rk4,
+discrete or analytical (ACI²) integrators.  `runner.run_ensemble` runs bench.py's
 seed ensemble: B streams stepped as one batched step, `step_frame` under
 `torch.func.vmap`.  The image front end (`frontend/`: pyramidal KLT,
 fundamental-matrix RANSAC whose hypotheses come from a seeded

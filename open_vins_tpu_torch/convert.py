@@ -3,7 +3,8 @@
 The dictionaries are keyed by the JAX package's field names, so a test can
 feed both packages the same state (`dict(zip(st._fields, map(np.asarray,
 st)))` on the JAX side).  Frame batches flatten the IMU window as `win_t`,
-`win_w`, `win_a`.
+`win_w`, `win_a`.  The dynamic initializer's problem and solution
+(`DynInitInput`, `DynInitResult`) cross under their JAX field names too.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from open_vins_tpu_torch import resolve_device
 from open_vins_tpu_torch.core.state import VioState
+from open_vins_tpu_torch.init.dynamic_init import DynInitInput, DynInitResult
 from open_vins_tpu_torch.models.feature_table import FeatureTable
 from open_vins_tpu_torch.models.manager import FrameInput
 from open_vins_tpu_torch.models.propagator import ImuWindow
@@ -59,6 +61,24 @@ def frames_from_numpy(arrays, device=None) -> FrameInput:
     return FrameInput(win=ImuWindow(t=t["win_t"], w=t["win_w"], a=t["win_a"]),
                       t_new=t["t_new"], ids=t["ids"], uv=t["uv"],
                       uvn=t["uvn"], mask=t["mask"])
+
+
+def dyn_input_from_numpy(arrays, device=None) -> DynInitInput:
+    """A JAX `DynInitInput` (`dict(zip(inp._fields, map(np.asarray,
+    inp)))`) as the port's record on `device`."""
+    return _from_numpy(DynInitInput, arrays, resolve_device(device))
+
+
+def dyn_result_from_numpy(arrays, device=None) -> DynInitResult:
+    return _from_numpy(DynInitResult, arrays, resolve_device(device))
+
+
+def dyn_input_to_numpy(inp: DynInitInput) -> dict:
+    return _to_numpy(inp)
+
+
+def dyn_result_to_numpy(res: DynInitResult) -> dict:
+    return _to_numpy(res)
 
 
 def state_to_numpy(state: VioState) -> dict:

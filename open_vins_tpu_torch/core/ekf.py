@@ -586,3 +586,55 @@ def initialize_landmark(state: VioState, cfg: FilterConfig, slot, feat_id,
         slam_valid=at | state.slam_valid)
     up_mask = torch.ones((m - 3,), dtype=torch.bool, device=dev)
     return new_state, Hx_rot[3:], res_rot[3:], up_mask
+
+
+def initialize_landmark_single(state: VioState, cfg: FilterConfig, slot,
+                               feat_id, lam0, H_x, h_f, res, sigma_pix_norm,
+                               row_mask):
+    """1-dof delayed initialization for ANCHORED_INVERSE_DEPTH_SINGLE
+    (UpdaterSLAM.cpp:190-240 with landmark_size 1; core/ekf.py:853-916 of
+    the reference): `initialize_landmark`'s orthogonal split with the
+    scalar inverse depth ρ as the new variable.  Only the covariance row
+    and column `slam_off + 3·slot` are seeded; the slot's two bearing
+    entries keep zero covariance and hold the fixed bearing as data.
+
+    lam0 [3] = [ρ, b_x, b_y] (the bearing final); h_f [m, 1] the ρ column,
+    with the bearing columns already nullspace-projected out of H_x, h_f
+    and res.  Returns (state, H_up [m−1, D], res_up [m−1], up_mask)."""
+    from open_vins_tpu_torch.models.update_helper import householder_rotate
+
+    m = h_f.shape[0]
+    D, L = cfg.state_dim, cfg.max_slam
+    dtype, dev = state.cov.dtype, state.cov.device
+    rm = row_mask[:, None]
+    h_f = torch.where(rm, h_f, 0.0)
+    H_x = torch.where(rm, H_x, 0.0)
+    res = torch.where(row_mask, res, 0.0)
+    R_full, B = householder_rotate(h_f, torch.cat([H_x, res[:, None]], 1))
+    Hx_rot, res_rot = B[:, :-1], B[:, -1]
+    r1 = R_full[0, 0]
+    r1_inv = torch.where(torch.abs(r1) > 1e-9,
+                         1.0 / torch.where(r1 == 0, 1.0, r1), 0.0)
+    HxP = Hx_rot[0:1] @ state.cov  # [1, D]
+    P_ff = r1_inv ** 2 * (HxP @ Hx_rot[0:1].T + sigma_pix_norm ** 2)
+    P_fx = -(r1_inv * HxP)[0]  # [D]
+
+    # the ρ row, column and corner, placed by selects (slot may be a device
+    # value)
+    idx = torch.arange(D, device=dev)
+    at_d = idx == cfg.slam_off + 3 * slot
+    r, c = at_d[:, None], at_d[None, :]
+    cov = torch.where(r & c, P_ff[0, 0],
+                      torch.where(r, P_fx[None, :],
+                                  torch.where(c, P_fx[:, None], state.cov)))
+
+    at = (torch.arange(L, device=dev) == slot)
+    lam_new = torch.cat([lam0[:1] + r1_inv * res_rot[0], lam0[1:]])
+    new_state = state.replace(
+        cov=cov,
+        slam_p=torch.where(at[:, None], lam_new, state.slam_p),
+        slam_p_fej=torch.where(at[:, None], lam0, state.slam_p_fej),
+        slam_id=torch.where(at, feat_id.to(torch.int32), state.slam_id),
+        slam_valid=at | state.slam_valid)
+    up_mask = torch.ones((m - 1,), dtype=torch.bool, device=dev)
+    return new_state, Hx_rot[1:], res_rot[1:], up_mask

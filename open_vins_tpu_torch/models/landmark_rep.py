@@ -16,9 +16,9 @@ R_GtoA = R_ItoC R_GtoI_A and p_AinG = p_I_A − R_ItoG_A R_ItoCᵀ p_IinC.
   ANCHORED_FULL_INVERSE_DEPTH   λ = (θ, φ, ρ) of p_FinA
   ANCHORED_MSCKF_INVERSE_DEPTH  λ = (α, β, ρ), p_FinA = (α/ρ, β/ρ, 1/ρ)
   ANCHORED_INVERSE_DEPTH_SINGLE λ = (ρ, b_x, b_y), p_FinA = (b_x, b_y, 1)/ρ
-with (θ, φ, ρ) ↦ (1/ρ)(cos θ sin φ, sin θ sin φ, cos φ).  The 1-dof
-ANCHORED_INVERSE_DEPTH_SINGLE has conversions here, but the SLAM updater
-does not run it yet (`updater_slam.require_ported`).
+with (θ, φ, ρ) ↦ (1/ρ)(cos θ sin φ, sin θ sin φ, cos φ).  Of the 1-dof
+ANCHORED_INVERSE_DEPTH_SINGLE only ρ is a state variable; the bearing is
+data (`updater_slam`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,11 @@ ANCHORED_INVERSE_DEPTH_SINGLE = "ANCHORED_INVERSE_DEPTH_SINGLE"
 
 def is_anchored(rep: str) -> bool:
     return rep.startswith("ANCHORED")
+
+
+def is_single(rep: str) -> bool:
+    """True for the 1-dof representation (only ρ is in the state)."""
+    return rep == ANCHORED_INVERSE_DEPTH_SINGLE
 
 
 def needs_lam_jacobian(rep: str) -> bool:

@@ -28,8 +28,11 @@ device except, per frame, one read of the ZUPT decision (`ZUPT_FLAG_READ`)
 and one of whether delayed init has work (see
 `updater_slam.delayed_init`); with `batched=True` (the step under
 `torch.func.vmap`) both branches run and each stream selects on the device.
-The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE representation and aruco landmarks
-raise NotImplementedError.
+
+Beside the step: `propagate_and_clone` (the background initializer's
+catch-up primitive), `get_active_features` (the tracked features
+re-triangulated for publishing) and the two warm starts,
+`initialize_from_gt` and `initialize_from_dynamic`.
 """
 
 from __future__ import annotations
@@ -226,13 +229,6 @@ def msckf_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
     return state, table, diag
 
 
-def _require_ported(cfg: FilterConfig) -> None:
-    """Raise for what the port does not have yet: the 1-dof single-depth
-    landmark representation and aruco landmarks."""
-    if cfg.max_slam > 0:
-        slam.require_ported(cfg)
-
-
 def marginalize_oldest(state: VioState, table: ft.FeatureTable,
                        cfg: FilterConfig):
     """Step 1: if the ring is full, move the landmarks anchored on the
@@ -273,7 +269,6 @@ def pre_update(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
                frame: FrameInput):
     """Steps 1-4: the state and table that the vision update starts from,
     and the reserved rows."""
-    _require_ported(cfg)
     state, table = marginalize_oldest(state, table, cfg)
     state = propagate_clone(state, cfg, frame)
     table = ingest(state, table, cfg, frame)
@@ -406,7 +401,6 @@ def step_frame(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
     (`runner.run_ensemble`): both branches run and each stream selects by
     its own flag on the device, and delayed init likewise selects its
     result per stream instead of reading its flag on the host."""
-    _require_ported(cfg)
     if not cfg.use_zupt:
         return _step_core(state, table, cfg, tri_opts, frame, batched)
     z_state, z_diag, accepted = zupt_attempt(state, table, cfg, frame)
@@ -440,3 +434,51 @@ def initialize_from_gt(cfg: FilterConfig, q, p, v, bg, ba, t,
     for i, key in enumerate(("th", "p", "v", "bg", "ba")):
         diag[3 * i:3 * i + 3] = prior_std[key] ** 2
     return ekf.set_initial_covariance(st, cfg, diag)
+
+
+def initialize_from_dynamic(cfg: FilterConfig, res, t, calib_ext_q,
+                            calib_ext_p, calib_intr) -> VioState:
+    """Seed the filter from a dynamic-initializer solution
+    (VioManagerHelper.cpp:78-146): the IMU mean of the MLE and its 15×15
+    covariance from the Gauss-Newton information in the top-left block,
+    instead of the groundtruth start's diagonal prior."""
+    st = initialize_from_gt(cfg, res.q_GtoI, res.p, res.v, res.bg, res.ba, t,
+                            calib_ext_q, calib_ext_p, calib_intr)
+    cov = torch.cat([
+        torch.cat([res.cov15.to(st.cov.dtype), st.cov[:15, 15:]], dim=1),
+        st.cov[15:]])
+    return st.replace(cov=cov)
+
+
+def propagate_and_clone(state: VioState, cfg: FilterConfig, win: ImuWindow,
+                        t_new) -> VioState:
+    """Propagate to t_new and clone, marginalizing the oldest clone first
+    when the ring is full — no measurement update (the catch-up replay
+    primitive of background initialization, VioManagerHelper.cpp:156-163).
+    The marginalized state is selected on the device over the whole record,
+    out of place, so the function runs under `torch.func.vmap`."""
+    full = state.n_clones >= cfg.max_clones
+    slot_old = oldest_slot(state, cfg)
+    state_m = ekf.marginalize_clone(slam.change_anchors(state, cfg, slot_old),
+                                    cfg, slot_old)
+    state = propagate(select(full, state_m, state), cfg, win, t_new)
+    return ekf.augment_clone(state, cfg, win.w[-1] - state.bg)
+
+
+def get_active_features(state: VioState, cfg: FilterConfig,
+                        table: ft.FeatureTable,
+                        tri_opts: tri.TriangulationOptions, max_feats: int):
+    """The tracked features re-triangulated against the current clone
+    window for publishing (VioManagerHelper::retriangulate_active_tracks,
+    VioManagerHelper.cpp:190-461): the `max_feats` rows with the most
+    observations, ties to the lowest row as `lax.top_k` breaks them.
+    Returns (p_G [max_feats, 3], ids [max_feats], valid [max_feats])."""
+    n_obs = ft.row_obs_counts(table)
+    score = torch.where(table.ids >= 0, n_obs.to(torch.float32), -1.0)
+    rows = select_candidates(score, max_feats)
+    tri_obs, _ = gather_feature_obs(state, cfg, table, rows)
+    p_f, ok = tri.triangulate_batch(tri_obs, tri_opts)
+    ok = ok & torch.isfinite(p_f).all(dim=-1) & (score[rows] > 1)
+    T = table.ids.shape[0]
+    ids = torch.where(rows < T, table.ids[torch.clamp(rows, max=T - 1)], -1)
+    return torch.where(ok[:, None], p_f, 0.0), ids, ok

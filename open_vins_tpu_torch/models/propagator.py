@@ -9,6 +9,9 @@ products, then two cumulative sums).  The per-interval Φ/B/Qd are built in
 one batch over the intervals and composed by the same pairwise tree as the
 reference, so the rounding follows it; the covariance is touched once.
 
+`fast_state_propagate` is the mean-only propagation for IMU-rate output,
+and `make_window` packs host samples into an ImuWindow.
+
 State error convention (JPL left error, [δθ δp δv δbg δba]):
     q = [δθ/2, 1] ⊗ q̂ ,  R_GtoI = (I - ⌊δθ⌋) R̂_GtoI
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from open_vins_tpu_torch.core.ekf import propagate_covariance
@@ -531,3 +535,74 @@ def propagate(state: VioState, cfg: FilterConfig, win: ImuWindow,
         q=q, p=p, v=v, cov=cov, q_fej=q, p_fej=p, v_fej=v,
         t=torch.as_tensor(t_new, dtype=dtype, device=dev),
     )
+
+
+def fast_state_propagate(state: VioState, cfg: FilterConfig, win: ImuWindow):
+    """Mean-only propagation for IMU-rate odometry output
+    (Propagator::fast_state_propagate, Propagator.cpp:140-267;
+    propagator.py:673-708 of the reference): the pose between camera
+    updates, sample by sample, without touching the covariance.  Returns
+    (q, p, v) at win.t[-1]."""
+    dtype, dev = state.cov.dtype, state.cov.device
+    gravity = torch.tensor([0.0, 0.0, cfg.gravity_mag], dtype=dtype,
+                           device=dev)
+    dts = torch.clamp(win.t[1:] - win.t[:-1], min=0.0)
+    wc, ac, _, _ = correct_imu(state, win.w, win.a, model=cfg.imu_model)
+    q, p, v = state.q, state.p, state.v
+    if cfg.integration == "analytical":
+        R_k, Xi1, Xi2, *_ = _xi_sum(0.5 * (wc[:-1] + wc[1:]),
+                                    0.5 * (ac[:-1] + ac[1:]), dts)
+        a_hat = 0.5 * (ac[:-1] + ac[1:])
+        q_steps = lie.rot_2_quat(R_k)
+        for k in range(dts.shape[0]):
+            R_T = lie.quat_2_rot(q).T
+            q_new = lie.quat_multiply(q_steps[k], q)
+            dt = dts[k]
+            v_new = v + R_T @ (Xi1[k] @ a_hat[k]) - gravity * dt
+            p = (p + v * dt + R_T @ (Xi2[k] @ a_hat[k])
+                 - 0.5 * gravity * dt * dt)
+            q, v = q_new, v_new
+        return q, p, v
+    step = _step_mean_rk4 if cfg.integration == "rk4" else _step_mean_midpoint
+    zero3 = torch.zeros(3, dtype=dtype, device=dev)
+    for k in range(dts.shape[0]):
+        q, p, v, _, _ = step(q, p, v, zero3, zero3, wc[k], ac[k], wc[k + 1],
+                             ac[k + 1], dts[k], gravity)
+    return q, p, v
+
+
+def make_window(imu_t, imu_w, imu_a, t0, t1, K, device=None) -> ImuWindow:
+    """Host-side: the samples strictly inside (t0, t1) with both ends
+    interpolated in, padded to K rows by repeating the last
+    (select_imu_readings + interpolate_data, Propagator.cpp:269-393;
+    propagator.py:711-754 of the reference).  Returns an f32 ImuWindow on
+    `device` (None = CUDA)."""
+    from open_vins_tpu_torch import resolve_device
+
+    imu_t = np.asarray(imu_t)
+    imu_w, imu_a = np.asarray(imu_w), np.asarray(imu_a)
+    idx = np.where((imu_t > t0) & (imu_t < t1))[0]
+
+    def interp(ta):
+        i1 = np.clip(np.searchsorted(imu_t, ta, side="right") - 1, 0,
+                     len(imu_t) - 2)
+        i2 = i1 + 1
+        lam = (ta - imu_t[i1]) / max(imu_t[i2] - imu_t[i1], 1e-12)
+        lam = np.clip(lam, 0.0, 1.0)
+        return ((1 - lam) * imu_w[i1] + lam * imu_w[i2],
+                (1 - lam) * imu_a[i1] + lam * imu_a[i2])
+
+    (w0, a0), (w1, a1) = interp(t0), interp(t1)
+    ts = np.asarray([t0, *imu_t[idx], t1])
+    ws = np.asarray([w0, *imu_w[idx], w1])
+    as_ = np.asarray([a0, *imu_a[idx], a1])
+    if len(ts) > K:
+        raise ValueError(f"IMU window {len(ts)} exceeds static capacity {K}")
+    pad = K - len(ts)
+    dev = resolve_device(device)
+
+    def tensor(x):
+        x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+        return torch.as_tensor(x.astype(np.float32), device=dev)
+
+    return ImuWindow(t=tensor(ts), w=tensor(ws), a=tensor(as_))

@@ -18,6 +18,10 @@ bench's render and tracker metrics, bench.py:284-380).  The RANSAC
 hypotheses come from a given `sets_of`, else from a `torch.Generator` on the
 run's device seeded with 0.
 
+`auto_init_state` is the replay's own routed initialization (static or
+dynamic, `init/router.py`), whose state `run_filter_from` takes instead of
+groundtruth.
+
 `stage_ensemble` and `run_ensemble` are the bench's seed ensemble
 (bench.py:227-282): B streams of one configuration, one seed each, stepped
 frame by frame as one batched step, `manager.step_frame` under
@@ -344,7 +348,7 @@ def ensemble_frame(runs: SimRun, k: int) -> manager.FrameInput:
 
 def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
                     run: SimRun, state0, k0: int, max_tracks: int = 256,
-                    device=None):
+                    device=None, diags=None):
     """`run_filter`, but from a given initial state at frame index k0 (the
     replay's real-initialization entry, InertialInitializer.cpp:104-158 →
     VioManagerHelper.cpp:78-188).  The first frame stepped is k0, whose IMU
@@ -353,7 +357,8 @@ def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
     steps do.
 
     Returns (final_state, per-frame (q, p, v, cov[:6,:6])) stacked over all
-    frames (no StepDiag, as in the reference)."""
+    frames (no StepDiag, as in the reference; a list `diags` gets each
+    stepped frame's)."""
     dev = resolve_device(device)
     run = _to(run, dev)
     state = _to(state0, dev)
@@ -361,9 +366,11 @@ def run_filter_from(cfg: FilterConfig, tri_opts: tri.TriangulationOptions,
     n = run.frames.t_new.shape[0]
     outs = [(state.q, state.p, state.v, state.cov[:6, :6])] * min(k0, n)
     for k in range(k0, n):
-        state, table, _ = manager.step_frame(state, table, cfg, tri_opts,
-                                             frame_at(run.frames, k))
+        state, table, diag = manager.step_frame(state, table, cfg, tri_opts,
+                                                frame_at(run.frames, k))
         outs.append((state.q, state.p, state.v, state.cov[:6, :6]))
+        if diags is not None:
+            diags.append(diag)
     return state, stack_records(outs)
 
 
@@ -399,3 +406,125 @@ def ensemble_metrics(outs, runs: SimRun):
             "rmse_median": float(np.median(rmse)),
             "nees_seed_mean": float(nees.mean()),
             "nees_seed_std": float(nees.std())}
+
+
+def imu_stream(run: SimRun):
+    """The staged run's IMU samples as one host stream (imu_t [N],
+    imu_w [N, 3], imu_a [N, 3], numpy): the frames' windows with the
+    shared end samples once."""
+    wt, ww, wa = (x.cpu().numpy() for x in (run.frames.win.t,
+                                            run.frames.win.w,
+                                            run.frames.win.a))
+    return (np.concatenate([wt[:, :-1].reshape(-1), wt[-1, -1:]]),
+            np.concatenate([ww[:, :-1].reshape(-1, 3), ww[-1:, -1]]),
+            np.concatenate([wa[:, :-1].reshape(-1, 3), wa[-1:, -1]]))
+
+
+def window_packer(imu_t, imu_w, imu_a):
+    """make_window(t0, t1, K) -> (n, t [K+1], w [K+1, 3], a [K+1, 3]) over
+    a host IMU stream: SensorHub::make_window's contract
+    (native/sensor_hub.cpp; the replay's packer of
+    examples/run_benchmark_suite.py:148-163): the samples in [t0, t1],
+    padded by repeating the last (dt = 0 no-ops)."""
+    def make_window(t0, t1, K):
+        sel = (imu_t >= t0 - 1e-6) & (imu_t <= t1 + 1e-6)
+        t, w, a = imu_t[sel], imu_w[sel], imu_a[sel]
+        n = min(len(t), K + 1)
+        T = np.full((K + 1,), t[n - 1] if n else 0.0)
+        W = np.zeros((K + 1, 3))
+        A = np.zeros((K + 1, 3))
+        if n:
+            T[:n], W[:n], A[:n] = t[:n], w[:n], a[:n]
+            W[n:], A[n:] = w[n - 1], a[n - 1]
+        return n, T, W, A
+
+    return make_window
+
+
+def auto_init_state(run: SimRun, sim, cfg: FilterConfig,
+                    params: simulator.SimParams, max_search_s: float = 40.0,
+                    device=None, attempts=None):
+    """The routed initialization on a staged stream, on `device` (None =
+    CUDA): the counterpart of `examples/run_benchmark_suite.py`'s
+    `auto_init_state` (:126-230 of the reference, InertialInitializer.cpp:
+    104-158).  Frame by frame the camera-0 track history grows; from 2 s on
+    the two half-window disparities route static or dynamic (the dynamic
+    problem on P = 6 poses ending at the newest frame, built by
+    `router.build_dyn_input`), and the first success ends the search.  The
+    attempt is synchronous: a replay loses no frame, so background
+    initialization's catch-up has nothing to do.  `sim` gives the camera
+    calibration (`cam_R_ItoC`, `cam_p_IinC`, `cam_intr`: a SimCalib or the
+    simulator).  `attempts`, a list, gets one (frame, kind, seconds) per
+    routed attempt.
+
+    Returns (state0, k0, kind, t_init) with k0 the first frame index to
+    process (state0.t == run.frames.t_new[k0 - 1]), or None when nothing
+    initializes within `max_search_s`."""
+    import time
+
+    from open_vins_tpu_torch.init import router
+
+    dev = resolve_device(device)
+    f = run.frames
+    ids, uv, uvn, mask = (x[:, 0].cpu().numpy()
+                          for x in (f.ids, f.uv, f.uvn, f.mask))
+    t_new = f.t_new.cpu().numpy()
+    imu_t, imu_w, imu_a = imu_stream(run)
+    make_window = window_packer(imu_t, imu_w, imu_a)
+    ropts = router.RouterOptions(window_time=1.0, imu_thresh=1.0)
+    w = ropts.window_time
+    imu_t_d, imu_w_d, imu_a_d = (torch.as_tensor(x, dtype=torch.float32,
+                                                 device=dev)
+                                 for x in (imu_t, imu_w, imu_a))
+    R_ItoC = sim.cam_R_ItoC.to(dev)
+    calib_q = lie.rot_2_quat(R_ItoC)
+    cam_p, cam_intr = sim.cam_p_IinC.to(dev), sim.cam_intr.to(dev)
+    hist = {}
+    for k in range(len(t_new)):
+        tk = float(t_new[k])
+        if tk > max_search_s:
+            break
+        for i in np.where(mask[k])[0]:
+            h = hist.setdefault(int(ids[k, i]), ([], [], []))
+            h[0].append(tk)
+            h[1].append(uv[k, i])
+            h[2].append(uvn[k, i])
+        if k < 8 or tk < 2.0 * w:
+            continue
+        ts_l = [v[0] for v in hist.values()]
+        px_l = [v[1] for v in hist.values()]
+        d1 = router.average_disparity(px_l, ts_l, tk - 2 * w, tk - w)
+        d2 = router.average_disparity(px_l, ts_l, tk - w, tk)
+        use_static, use_dynamic = router.decide(ropts, d1, d2)
+        t0 = time.perf_counter()
+        dyn_input = None
+        if use_dynamic:
+            P = 6
+            stride = max(1, int(round(2 * w * params.cam_rate / (P - 1))))
+            # the pose grid ends at the newest frame k: the state is
+            # reported at the last pose time
+            pose_ks = [j for j in (k - stride * (P - 1 - i) for i in range(P))
+                       if j >= 0]
+            t_poses = [float(t_new[j]) for j in pose_ks]
+            hist_n = {fid: (ts, uvns) for fid, (ts, _, uvns) in hist.items()}
+            dyn_input = router.build_dyn_input(
+                hist_n, t_poses, make_window, R_ItoC[0].cpu().numpy(),
+                cam_p[0].cpu().numpy(),
+                K=int(params.imu_rate * 2 * w
+                      / max(len(t_poses) - 1, 1)) + 4, device=dev)
+        kind, res = router.try_initialize(ropts, imu_t_d, imu_w_d, imu_a_d,
+                                          tk, d1, d2, dyn_input=dyn_input)
+        if attempts is not None and (use_static or dyn_input is not None):
+            attempts.append((k, kind, time.perf_counter() - t0))
+        if kind == "none":
+            continue
+        if kind == "static":
+            zero = torch.zeros(3, dtype=torch.float32, device=dev)
+            st0 = manager.initialize_from_gt(
+                cfg, res.q_GtoI, zero, zero, res.bg, res.ba, tk, calib_q,
+                cam_p, cam_intr)
+        else:
+            st0 = manager.initialize_from_dynamic(cfg, res, tk, calib_q,
+                                                  cam_p, cam_intr)
+        return st0, k + 1, kind, tk
+    return None

@@ -22,13 +22,21 @@ UpdaterSLAM.cpp:58-647):
     marginalized move to the newest clone (an exact covariance row map).
 
 The stored λ follows cfg.feat_rep_slam (`landmark_rep`): GLOBAL_3D,
-GLOBAL_FULL_INVERSE_DEPTH, ANCHORED_3D, ANCHORED_FULL_INVERSE_DEPTH or
-ANCHORED_MSCKF_INVERSE_DEPTH.  Rows are linearized in the global point and
-chained to λ, and for the anchored representations to the anchor clone's
-columns (`_chain_anchored`).  The 1-dof ANCHORED_INVERSE_DEPTH_SINGLE and
-aruco landmarks are not ported yet: `require_ported` raises for them.
-Lookups use plain indexing; writes at slots that are device values use
-selects and one-hots, so every function runs under `torch.func.vmap`.
+GLOBAL_FULL_INVERSE_DEPTH, ANCHORED_3D, ANCHORED_FULL_INVERSE_DEPTH,
+ANCHORED_MSCKF_INVERSE_DEPTH or the 1-dof ANCHORED_INVERSE_DEPTH_SINGLE.
+Rows are linearized in the global point and chained to λ, and for the
+anchored representations to the anchor clone's columns (`_chain_anchored`).
+The single-depth representation keeps only ρ in the state: it linearizes
+through its ANCHORED_MSCKF_INVERSE_DEPTH equivalent and projects the bearing
+columns out of each system (UpdaterSLAM.cpp:163-210, 340-380); its slot's
+two other covariance entries stay zero and hold the bearing as data.
+
+Aruco landmarks (ids in [0, 4·num_aruco_tags], TrackAruco's 4·tag + corner
+contract) promote first, and their rows are whitened by
+sigma_pix_slam / sigma_pix_aruco and gated with chi2_multiplier_aruco (the
+reference runs a second UpdaterSLAM for them).  Lookups use plain indexing;
+writes at slots that are device values use selects and one-hots, so every
+function runs under `torch.func.vmap`.
 """
 
 from __future__ import annotations
@@ -53,21 +61,42 @@ _INIT_VAR_CAP = 1e4  # max inserted landmark variance (units² of the rep):
 INIT_FLAG_READ = "delayed_init.flag_read"
 
 
-PORTED_REPS = (lrep.GLOBAL_3D, lrep.GLOBAL_FULL_INVERSE_DEPTH,
-               lrep.ANCHORED_3D, lrep.ANCHORED_FULL_INVERSE_DEPTH,
-               lrep.ANCHORED_MSCKF_INVERSE_DEPTH)
+def _aruco_landmark_mask(cfg: FilterConfig, ids):
+    """ids in [0, 4·num_aruco_tags] are aruco tag corners (TrackAruco's
+    featid = 4·tag + corner contract); natural features are numbered
+    above."""
+    if cfg.num_aruco_tags <= 0:
+        return torch.zeros_like(ids, dtype=torch.bool)
+    return (ids >= 0) & (ids <= 4 * cfg.num_aruco_tags)
 
 
-def require_ported(cfg: FilterConfig) -> None:
-    """Raise for a SLAM configuration the port does not have yet."""
-    if cfg.feat_rep_slam not in PORTED_REPS:
-        raise NotImplementedError(
-            f"landmark representation {cfg.feat_rep_slam!r} is not ported "
-            "yet (ROADMAP queue 1); use one of " + ", ".join(PORTED_REPS))
-    if cfg.num_aruco_tags > 0:
-        raise NotImplementedError(
-            "aruco landmarks (num_aruco_tags > 0) are not ported yet "
-            "(ROADMAP queue 1)")
+def _aruco_whitening(cfg: FilterConfig, ids):
+    """(row scale, χ² multiplier) per landmark id: aruco rows are whitened
+    by sigma_pix_slam / sigma_pix_aruco, which keeps the stacked system
+    isotropic at sigma_pix_slam (exactly per-row sigma_pix_aruco noise)."""
+    is_ar = _aruco_landmark_mask(cfg, ids)
+    return (torch.where(is_ar, cfg.sigma_pix_slam / cfg.sigma_pix_aruco, 1.0),
+            torch.where(is_ar, cfg.chi2_multiplier_aruco,
+                        cfg.chi2_multiplier_slam))
+
+
+def _lin_rep(cfg: FilterConfig) -> str:
+    """The representation the rows are linearized in: the single-depth
+    representation goes through its MSCKF inverse-depth equivalent."""
+    rep = cfg.feat_rep_slam
+    return lrep.ANCHORED_MSCKF_INVERSE_DEPTH if lrep.is_single(rep) else rep
+
+
+def _drop_bearing(H_b, M, row_mask=None):
+    """Project the bearing columns H_b [..., m, 2] out of M [..., m, n] (a
+    Householder rotation whose first two rows are then zeroed), with the
+    invalid rows zeroed first when `row_mask` is given."""
+    if row_mask is not None:
+        H_b = torch.where(row_mask[..., None], H_b, 0.0)
+        M = torch.where(row_mask[..., None], M, 0.0)
+    _, Mr = uh.householder_rotate(H_b, M)
+    keep = torch.arange(Mr.shape[-2], device=Mr.device) >= 2
+    return torch.where(keep[:, None], Mr, 0.0)
 
 
 def slam_row_mask(state: VioState, table: FeatureTable):
@@ -78,13 +107,14 @@ def slam_row_mask(state: VioState, table: FeatureTable):
 
 
 def _set_slam_cols(H_x, cfg: FilterConfig, H_lam):
-    """Place landmark l's columns [l, rows, 3] at its slot's columns of
-    H_x [L, rows, D] (the landmark block of H_x is all-zero, so add ==
+    """Place landmark l's columns [l, rows, k] at its slot's first k
+    columns of H_x [L, rows, D] (k = 1: the ρ column of the single-depth
+    representation; the landmark block of H_x is all-zero, so add ==
     set)."""
-    L, rows, _ = H_lam.shape
+    L, rows, k = H_lam.shape
     cols = (cfg.slam_off + 3 * torch.arange(L, device=H_x.device)[:, None]
-            + torch.arange(3, device=H_x.device)[None, :])  # [L, 3]
-    return H_x.scatter(2, cols[:, None, :].expand(L, rows, 3), H_lam)
+            + torch.arange(k, device=H_x.device)[None, :])  # [L, k]
+    return H_x.scatter(2, cols[:, None, :].expand(L, rows, k), H_lam)
 
 
 def _add_clone_block(H_x, cfg: FilterConfig, slot, add):
@@ -129,9 +159,11 @@ def _chain_anchored(state: VioState, cfg: FilterConfig, H_x, H_fg,
     the anchored representations' anchor-clone columns added to H_x.
     Linearization points as the reference's (UpdaterHelper.cpp:87-96): for
     the anchored representations the current global point in the FEJ
-    anchor frame; for the global inverse depth the stored FEJ λ.
+    anchor frame; for the global inverse depth the stored FEJ λ.  λ is
+    `_lin_rep`'s (the single-depth representation linearizes as
+    ANCHORED_MSCKF_INVERSE_DEPTH, UpdaterSLAM.cpp:340).
     Returns (H_x, H_lam)."""
-    rep = cfg.feat_rep_slam
+    rep = _lin_rep(cfg)
     if not lrep.needs_lam_jacobian(rep):
         return H_x, H_fg
     fej = cfg.use_fej
@@ -161,16 +193,23 @@ def _mark_rows(T, rows, flags):
                        device=rows.device).index_put((rows,), flags)
 
 
-def _init_scores(state: VioState, cfg: FilterConfig, table: FeatureTable):
+def _init_scores(state: VioState, cfg: FilterConfig, table: FeatureTable,
+                 aruco_first: bool = True):
     """(score [T], n_free): the observation count of every full-window row
     not yet a landmark (-1 elsewhere, and everywhere before the window is
-    full and dt_slam_delay has passed), and the free landmark slots."""
+    full and dt_slam_delay has passed), aruco rows raised by 1e4 so that
+    they promote first (the reference always makes them SLAM; not in the
+    sequential oracle, as in the reference), and the free landmark
+    slots."""
     delay_ok = (state.t - state.t_init) >= cfg.dt_slam_delay
     window_full = (state.n_clones >= cfg.max_clones) & delay_ok
     fullw = ft.full_window_rows(table, state.n_clones, cfg) & window_full
     cand = fullw & ~slam_row_mask(state, table)
     score = torch.where(cand, ft.row_obs_counts(table).to(torch.float32),
                         -1.0)
+    if aruco_first:
+        score = torch.where(cand & _aruco_landmark_mask(cfg, table.ids),
+                            score + 1e4, score)
     return score, (~state.slam_valid).sum(dtype=torch.int32)
 
 
@@ -179,7 +218,6 @@ def promotion_candidates(state: VioState, cfg: FilterConfig,
     """[T] bool — rows reserved for SLAM promotion this frame: the
     longest-tracked full-window rows, bounded by the free slot count and the
     per-frame init cap (VioManager.cpp:410-453 triage)."""
-    require_ported(cfg)
     score, n_free = _init_scores(state, cfg, table)
     budget = torch.clamp(n_free, max=MAX_INIT_PER_FRAME)
     T = table.ids.shape[0]
@@ -206,8 +244,9 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
 
     gather_fn(state, cfg, table, rows) -> (tri_obs, gobs) is the manager's
     `gather_feature_obs`.  Returns (state, table, n_init), and with
-    `collect` also (H_up [F·(2·C·N−3), D], res_up) with row noise
-    cfg.sigma_pix_slam (zero rows when nothing was initialized).
+    `collect` also (H_up [F·(2·C·N−k), D], res_up) with row noise
+    cfg.sigma_pix_slam (zero rows when nothing was initialized; k = 1 for
+    the single-depth representation, else 3).
 
     The reference skips the init block behind a `lax.cond`; here the
     decision is one read of a device flag on the host per frame (`if`),
@@ -218,7 +257,6 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     value of the unselected branch is dropped by the select).  With
     `_DELAYED_INIT_JOINT = False` the sequential oracle
     (`_delayed_init_sequential`) runs instead (not with `collect`)."""
-    require_ported(cfg)
     if not _DELAYED_INIT_JOINT:
         if collect:
             raise ValueError("collect requires the joint batched init")
@@ -227,7 +265,8 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
     F = MAX_INIT_PER_FRAME
     D = cfg.state_dim
     dt, dev = state.cov.dtype, state.cov.device
-    up_rows = F * (2 * cfg.max_clones * cfg.num_cams - 3)
+    k = 1 if lrep.is_single(cfg.feat_rep_slam) else 3
+    up_rows = F * (2 * cfg.max_clones * cfg.num_cams - k)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     nothing = (state, table, zero_i)
     if collect:
@@ -274,7 +313,8 @@ def _delayed_init_sequential(state: VioState, cfg: FilterConfig,
     F = MAX_INIT_PER_FRAME
     sigma = cfg.sigma_pix_slam
     dev = state.cov.device
-    score, n_free = _init_scores(state, cfg, table)
+    single = lrep.is_single(cfg.feat_rep_slam)
+    score, n_free = _init_scores(state, cfg, table, aruco_first=False)
     rows = ft.select_candidates(score, F)
     cand_ok = score[rows] > 0
     gobs, p_f, tri_ok, feat_ids, free_order, attempted = _init_candidates(
@@ -291,9 +331,23 @@ def _delayed_init_sequential(state: VioState, cfg: FilterConfig,
                                                        p_f[i], p_f[i])
         H_x, H_lam, lam0 = (a[0] for a in _init_to_lam(
             st, cfg, H_x[None], H_fg[None], p_f[i][None]))
-        st2, H_up, res_up, up_mask = ekf.initialize_landmark(
-            st, cfg, slot, feat_ids[i], lam0, H_x, H_lam, res, sigma,
-            row_mask)
+        if single:
+            # ρ becomes the state; the bearing columns are projected out of
+            # [H_x | h_ρ | res] so that the stored bearing is not taken as
+            # exact (UpdaterSLAM.cpp:190-206)
+            Dx = H_x.shape[1]
+            Mr = _drop_bearing(H_lam[:, :2], torch.cat(
+                [H_x, H_lam[:, 2:3], res[:, None]], 1), row_mask)
+            h_rho = Mr[:, Dx:Dx + 1]
+            ok = ok & (torch.linalg.vector_norm(h_rho) > 1e-6)
+            st2, H_up, res_up, up_mask = ekf.initialize_landmark_single(
+                st, cfg, slot, feat_ids[i], lam0[[2, 0, 1]], Mr[:, :Dx],
+                h_rho, Mr[:, -1],
+                sigma, torch.arange(Mr.shape[0], device=dev) >= 2)
+        else:
+            st2, H_up, res_up, up_mask = ekf.initialize_landmark(
+                st, cfg, slot, feat_ids[i], lam0, H_x, H_lam, res, sigma,
+                row_mask)
         at = slot_ids == slot
         st2 = st2.replace(
             slam_anchor_slot=torch.where(at, st.head.to(torch.int32),
@@ -363,11 +417,11 @@ def _init_candidates(state: VioState, cfg: FilterConfig, table: FeatureTable,
 
 def _init_to_lam(state: VioState, cfg: FilterConfig, H_x, H_fg, p_f):
     """The init systems of F candidates at triangulated points p_f [F, 3],
-    in λ: every new landmark is anchored on the newest clone and camera 0.
-    The value λ₀ uses the current anchor pose, the Jacobians the
-    triangulated point in the FEJ anchor frame (UpdaterHelper.cpp:87-96).
-    Returns (H_x, H_lam, λ₀ [F, 3])."""
-    rep = cfg.feat_rep_slam
+    in λ (of `_lin_rep`): every new landmark is anchored on the newest
+    clone and camera 0.  The value λ₀ uses the current anchor pose, the
+    Jacobians the triangulated point in the FEJ anchor frame
+    (UpdaterHelper.cpp:87-96).  Returns (H_x, H_lam, λ₀ [F, 3])."""
+    rep = _lin_rep(cfg)
     if not lrep.needs_lam_jacobian(rep):
         return H_x, H_fg, p_f
     head = state.head.long()
@@ -397,6 +451,8 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     sigma = cfg.sigma_pix_slam
     dtype, dev = state.cov.dtype, state.cov.device
     T = table.ids.shape[0]
+    single = lrep.is_single(cfg.feat_rep_slam)
+    k = 1 if single else 3
     gobs, p_f, tri_ok, feat_ids, free_order, attempted = _init_candidates(
         state, cfg, table, tri_opts, gather_fn, rows, cand_ok)
 
@@ -405,6 +461,12 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     H_x, H_lam, res, row_mask = uh.feature_jacobian_batch(state, cfg, gobs,
                                                           p_f, p_f, ctx0)
     H_x, H_lam, lam0 = _init_to_lam(state, cfg, H_x, H_lam, p_f)
+    if cfg.num_aruco_tags > 0:
+        # aruco candidates carry sigma_pix_aruco: whitened rows keep the
+        # seeding and leftover algebra isotropic at sigma (exact)
+        c = _aruco_whitening(cfg, feat_ids)[0]
+        H_x, H_lam, res = (H_x * c[:, None, None], H_lam * c[:, None, None],
+                           res * c[:, None])
 
     # kill non-finite/absurd rows BEFORE the QR: a rejected candidate keeps
     # the [0,0,1] placeholder point, whose projection can overflow; one bad
@@ -420,11 +482,21 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     H_lam_m = torch.where(rm & ~bad_l, H_lam, 0.0)
     H_x_m = torch.where(rm & ~bad_x, H_x, 0.0)
     res_m = torch.where(row_mask & ~bad_r, res, 0.0)
+    if single:
+        # the bearing columns projected out; ρ is the 1-dof state, and
+        # λ₀ = (α, β, ρ) becomes (ρ, b_x, b_y)
+        Dx = H_x_m.shape[-1]
+        Mr = _drop_bearing(H_lam_m[..., :2], torch.cat(
+            [H_x_m, H_lam_m[..., 2:3], res_m[..., None]], dim=-1))
+        H_x_m, H_lam_m, res_m = Mr[..., :Dx], Mr[..., Dx:Dx + 1], Mr[..., -1]
+        lam0 = lam0[:, [2, 0, 1]]
+        extra_ok = extra_ok & (torch.linalg.vector_norm(H_lam_m,
+                                                        dim=(1, 2)) > 1e-6)
     R_full, Br = uh.householder_rotate(
         H_lam_m, torch.cat([H_x_m, res_m[..., None]], dim=-1))
     Hx_rot, res_rot = Br[..., :-1], Br[..., -1]
-    R1, Hx1, res1 = R_full[:, :3, :3], Hx_rot[:, :3], res_rot[:, :3]
-    H_up, res_up = Hx_rot[:, 3:], res_rot[:, 3:]
+    R1, Hx1, res1 = R_full[:, :k, :k], Hx_rot[:, :k], res_rot[:, :k]
+    H_up, res_up = Hx_rot[:, k:], res_rot[:, k:]
 
     # attempt budget first, then the quality gates; failed attempts are
     # consumed below so they cannot block the candidate queue
@@ -434,13 +506,19 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     P_ss = uh.take_cols(uh.take_cols(state.cov, sup).T, sup)
     gamma = uh.chi2_statistic(P_ss, uh.take_cols(H_up, sup), res_up, sigma)
     dof = torch.clamp(n_valid - 3, min=1)
-    ok = (ok & torch.isfinite(gamma)
-          & (gamma < ekf.chi2_gate(dof) * cfg.chi2_multiplier_slam))
+    mult = _aruco_whitening(cfg, feat_ids)[1]
+    ok = ok & torch.isfinite(gamma) & (gamma < ekf.chi2_gate(dof) * mult)
 
     # R1⁻¹ and the observability cap: a nearly singular landmark factor
     # would insert an astronomical landmark covariance into P, and the joint
     # update's support spans every landmark column — refuse it instead
-    R1inv_raw = smallmat.inv_upper3(R1)
+    if single:
+        r1 = R1[:, 0, 0]
+        R1inv_raw = torch.where(torch.abs(r1) > 1e-9,
+                                1.0 / torch.where(r1 == 0, 1.0, r1),
+                                0.0)[:, None, None]
+    else:
+        R1inv_raw = smallmat.inv_upper3(R1)
     var_proxy = sigma ** 2 * torch.sum(R1inv_raw ** 2, dim=(1, 2))
     ok = ok & torch.isfinite(var_proxy) & (var_proxy < _INIT_VAR_CAP)
 
@@ -453,16 +531,16 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
 
     # joint covariance insertion (StateHelper.cpp:484-577, stacked):
     #   P_fX = −R1⁻¹ Hx1 P ;  P_FF = R1⁻¹ (Hx1 P Hx1ᵀ + σ² I) R1⁻ᵀ
-    X = (Hx1 * okf[:, None, None]).reshape(F * 3, D)
-    HxP = X @ state.cov  # [F·3, D]
-    Bflat = torch.block_diag(*R1inv)  # [F·3, F·3]
-    G = HxP @ X.T + sigma ** 2 * torch.eye(F * 3, dtype=dtype, device=dev)
+    X = (Hx1 * okf[:, None, None]).reshape(F * k, D)
+    HxP = X @ state.cov  # [F·k, D]
+    Bflat = torch.block_diag(*R1inv)  # [F·k, F·k]
+    G = HxP @ X.T + sigma ** 2 * torch.eye(F * k, dtype=dtype, device=dev)
     P_FF = Bflat @ G @ Bflat.T
     P_fX = -(Bflat @ HxP)
     # rejected candidates land on the calib columns after the landmark
     # block with all-zero rows: adding them changes nothing
     idx = (cfg.slam_off + 3 * slot_eff[:, None]
-           + torch.arange(3, device=dev)[None, :]).reshape(F * 3)
+           + torch.arange(k, device=dev)[None, :]).reshape(F * k)
     rows_add = torch.zeros_like(state.cov).index_add(0, idx, P_fX)
     # P_fX is zero at the new slots' columns (free-slot covariance rows are
     # zero), so the corner gets exactly P_FF
@@ -470,7 +548,10 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
         (idx[:, None], idx[None, :]), P_FF, accumulate=True)
     cov = state.cov + rows_add + rows_add.T + corner
 
-    lam_new = lam0 + (R1inv @ res1[..., None])[..., 0]
+    # the mean correction R1⁻¹ res1 (ρ only for the single depth)
+    df = (R1inv @ res1[..., None])[..., 0]
+    lam_new = lam0 + (torch.cat([df, df.new_zeros((F, 2))], dim=1)
+                      if single else df)
     head = state.head.to(torch.int32)
     state = state.replace(
         cov=0.5 * (cov + cov.T),
@@ -514,8 +595,11 @@ def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
     Returns (state, table, H [L·2·O, D], res, fail_count [L], n_used) with
     row noise cfg.sigma_pix_slam and column support
     cfg.slam_meas_support_ranges; `state` carries the updated fail counters
-    and `table` has the consumed measurements cleared."""
-    require_ported(cfg)
+    and `table` has the consumed measurements cleared.  Single-depth
+    landmarks stack their rows with the bearing columns projected out (the
+    first two rows dropped, dof n − 2, at least 2 observations,
+    UpdaterSLAM.cpp:286, 340-380); aruco rows are whitened and gated with
+    chi2_multiplier_aruco."""
     dtype, dev = state.cov.dtype, state.cov.device
     if cfg.max_slam == 0:
         return (state, table,
@@ -556,17 +640,34 @@ def build_update(state: VioState, cfg: FilterConfig, table: FeatureTable):
         state, cfg, gobs, p_G_cur, p_G_fej, ctx_w)
     H_x, H_lam = _chain_anchored(state, cfg, H_x, H_fg, p_G_cur)
     n_valid = row_mask.sum(dim=-1, dtype=torch.int32)
-    H_full = _set_slam_cols(H_x, cfg, H_lam)
+    if lrep.is_single(cfg.feat_rep_slam):
+        # the ρ column into the state, the bearing projected out of the
+        # whole system: the bearing fixed at init is not taken as exact
+        Mr = _drop_bearing(H_lam[..., :2], torch.cat(
+            [_set_slam_cols(H_x, cfg, H_lam[..., 2:3]), res[..., None]],
+            dim=-1))
+        H_full, res = Mr[..., :-1], Mr[..., -1]
+        out_mask = (torch.arange(2 * O, device=dev) >= 2).expand(L, 2 * O)
+        dof = torch.clamp(n_valid - 2, min=1)
+        min_rows = 4  # required_meas = 2 observations
+    else:
+        H_full = _set_slam_cols(H_x, cfg, H_lam)
+        out_mask = row_mask
+        dof = torch.clamp(n_valid, min=1)
+        min_rows = 1
+    mult = cfg.chi2_multiplier_slam
+    if cfg.num_aruco_tags > 0:
+        c, mult = _aruco_whitening(cfg, state.slam_id)
+        H_full, res = H_full * c[:, None, None], res * c[:, None]
 
     # χ² gates contract over the SLAM support columns only
     sup = cfg.slam_meas_support_ranges
     P_ss = uh.take_cols(uh.take_cols(state.cov, sup).T, sup)
     gamma = uh.chi2_statistic(P_ss, uh.take_cols(H_full, sup), res, sigma)
-    dof = torch.clamp(n_valid, min=1)
-    ok = (has_row & (n_valid >= 1) & torch.isfinite(gamma)
-          & (gamma < ekf.chi2_gate(dof) * cfg.chi2_multiplier_slam))
+    ok = (has_row & (n_valid >= min_rows) & torch.isfinite(gamma)
+          & (gamma < ekf.chi2_gate(dof) * mult))
 
-    keep = ok[:, None] & row_mask  # [L, 2O]
+    keep = ok[:, None] & out_mask  # [L, 2O]
     H_big = torch.where(keep[..., None], H_full, 0.0).reshape(L * 2 * O, D)
     res_big = torch.where(keep, res, 0.0).reshape(L * 2 * O)
 
@@ -621,8 +722,11 @@ def change_anchors(state: VioState, cfg: FilterConfig, dying_slot):
     a_cam = state.slam_anchor_cam.long()
     q_e, p_e = state.calib_ext_q[a_cam], state.calib_ext_p[a_cam]
 
+    # single-depth landmarks have no FEJ value of their own: the
+    # reference's get_xyz(true) reads the current one (Landmark.cpp:53-57)
+    lam_f = state.slam_p if lrep.is_single(rep) else state.slam_p_fej
     lam_new_f, J_lam, J_xo, J_xn = lrep.anchor_change_jacobians(
-        rep, state.slam_p_fej, state.clones_q_fej[dying],
+        rep, lam_f, state.clones_q_fej[dying],
         state.clones_p_fej[dying], state.clones_q_fej[new_slot],
         state.clones_p_fej[new_slot], q_e, p_e)
     p_G = lrep.to_global(rep, state.slam_p, state.clones_q[dying],

@@ -93,6 +93,24 @@ pixel noise (`ref_tracksim_*`, the stereo estimator's check).  Write it
 with ``python tests/test_torch_fixture.py --write-rendered-ref`` (JAX and
 the port on the CPU, about four minutes); `test_rendered_ref_matches_fresh_run`
 (slow) re-derives it.
+
+The initialization and the rest of the estimator have JAX results of their
+own: `static_init_ref.npz` (`try_static_init` on tests/test_init.py's
+windows, ``--write-static-ref``); `dyninit_seed11_ref.npz` (the jitted
+`initialize` on tests/test_dynamic_init.py's problems, their inputs, and
+the eager run of every accepted one: the reference's own spread,
+``--write-dyninit-ref``, a few minutes); `v102_autoinit_seed0_ref.npz`
+(examples/run_benchmark_suite.py's `auto_init_state` on the port's CPU
+staging of the V1_02 replay, with every routed attempt, the dynamic problem
+and result of the successful one, JAX's `run_filter_from` from that init
+and `background.catch_up` over the next camera times,
+``--write-autoinit-ref``, a few minutes); `oppoint_single_sim20_seed0_ref
+.npz` and `sequential_single_sim20_seed0_ref.npz` (the operating point with
+ANCHORED_INVERSE_DEPTH_SINGLE landmarks, joint and sequential, on the
+fixture's frames, ``--write-single-ref``); and `aruco_sim5_seed3_ref.npz`
+(tests/test_aruco_sigma.py's stream with aruco landmarks, staged by the
+port on the CPU, ``--write-aruco-ref``).  `test_init_refs_match_fresh_run`
+(slow) re-derives them.
 """
 
 from __future__ import annotations
@@ -191,6 +209,44 @@ RENDERED_META = {
 }
 V102_TRUTH = "results/suite/truths/V1_02_medium.txt"
 V102_T_RUN = 40.0
+DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
+# the 1-dof single-depth landmarks at the operating point, in the joint
+# "qr" update and in the sequential ordering, on the fixture's frames
+SINGLE_REFS = {
+    "single": (os.path.join(DATA, "oppoint_single_sim20_seed0_ref.npz"),
+               dict(OPPOINT_CFG,
+                    feat_rep_slam="ANCHORED_INVERSE_DEPTH_SINGLE")),
+    "single_sequential": (
+        os.path.join(DATA, "sequential_single_sim20_seed0_ref.npz"),
+        dict(OPPOINT_CFG, feat_rep_slam="ANCHORED_INVERSE_DEPTH_SINGLE",
+             joint_vision_update=False))}
+ARUCO_REF = os.path.join(DATA, "aruco_sim5_seed3_ref.npz")
+# tests/test_aruco_sigma.py's stream (30 points of a 512-point map, 5 s,
+# seed 3) and filter (11 clones, 8 landmark slots, <= 20 MSCKF features),
+# with ids 0..256 aruco tag corners (64 tags) at sigma_pix_aruco 3 and a
+# doubled χ² multiplier, so that both kinds of landmark are in the state
+ARUCO_META = {
+    "sim": dict(imu_rate=200.0, cam_rate=20.0, num_cams=1, num_pts=30,
+                map_size=512, duration=5.0, sigma_pix=1.0),
+    "traj": None, "seed": 3,
+    "cfg": dict(max_clones=11, max_slam=8, num_cams=1,
+                max_msckf_in_update=20, num_aruco_tags=64,
+                sigma_pix_aruco=3.0, chi2_multiplier_aruco=2.0),
+    "max_tracks": 256,
+}
+DYNINIT_REF = os.path.join(DATA, "dyninit_seed11_ref.npz")
+# tests/test_dynamic_init.py's problems: name -> (seed, constant-
+# acceleration trajectory, n_pose, window s, features cleared)
+DYNINIT_CASES = {
+    "recover": (11, False, 6, 2.0, False),
+    "const_accel": (5, True, 6, 2.0, False),
+    "short_window": (11, False, 4, 0.75, False),
+    "short_const_accel": (7, True, 4, 1.0, False),
+    "no_features": (12, False, 6, 2.0, True),
+}
+STATIC_REF = os.path.join(DATA, "static_init_ref.npz")
+V102_AUTOINIT_REF = os.path.join(DATA, "v102_autoinit_seed0_ref.npz")
+CATCHUP_FRAMES = 10  # camera times queued behind the init attempt
 
 
 def v102_meta():
@@ -765,6 +821,209 @@ def write_rendered_reference(path=RENDERED_REF, meta=RENDERED_META):
         "seed1_n_slam_mean": float(ref["ref_seed1_n_slam"].mean())}))
 
 
+def write_static_reference(path=STATIC_REF):
+    """JAX's `try_static_init` on tests/test_torch_init.py's windows (those
+    of tests/test_init.py), waiting for the jerk and not: `{case}_t`,
+    `{case}_w`, `{case}_a`, `{case}_mask` and `{case}_{jerk|still}_*` (the
+    StaticInitResult)."""
+    import jax.numpy as jnp
+
+    from open_vins_tpu.init import static_init
+    from test_init import OPTS
+    from test_torch_init import STATIC_CASES, _static_inputs
+
+    arrays, summary = {}, {}
+    for name in STATIC_CASES:
+        tt, w, a, m = _static_inputs(name)
+        arrays.update({f"{name}_t": tt, f"{name}_w": w, f"{name}_a": a,
+                       f"{name}_mask": m})
+        for wait in (True, False):
+            tag = f"{name}_{'jerk' if wait else 'still'}"
+            res = static_init.try_static_init(
+                OPTS._replace(wait_for_jerk=wait), jnp.asarray(tt),
+                jnp.asarray(w), jnp.asarray(a), jnp.asarray(m),
+                float(tt[-1]))
+            arrays.update({f"{tag}_{k}": np.asarray(v)
+                           for k, v in res._asdict().items()})
+            summary[tag] = bool(res.success)
+    meta = {"opts": dict(OPTS._asdict()), "cases": list(STATIC_CASES)}
+    np.savez_compressed(path, **arrays, meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({"path": path, "bytes": os.path.getsize(path),
+                      **summary}))
+
+
+def dyninit_inputs():
+    """name -> JAX DynInitInput of DYNINIT_CASES, built as
+    tests/test_dynamic_init.py builds them."""
+    import jax.numpy as jnp
+
+    from open_vins_tpu.sim import simulator
+    from test_dynamic_init import PARAMS, TestDegenerateGeometry, build_input
+
+    out = {}
+    for name, (seed, const, n_pose, window, no_feats) in \
+            DYNINIT_CASES.items():
+        params = PARAMS._replace(duration=6.0) if const else PARAMS
+        traj = TestDegenerateGeometry._const_accel_traj() if const else None
+        sim = simulator.build(params, seed=seed, traj=traj)
+        inp = build_input(sim, params, n_pose=n_pose, window=window)
+        if no_feats:
+            inp = inp._replace(obs_mask=jnp.zeros_like(inp.obs_mask))
+        out[name] = inp
+    return out
+
+
+def write_dyninit_reference(path=DYNINIT_REF):
+    """JAX's jitted `initialize` on each problem of DYNINIT_CASES, and on
+    each it accepts also its eager (op-by-op) run: the reference's own
+    spread.  Stores `{case}_in_*` (the DynInitInput), `{case}_jit_*` and
+    `{case}_eager_*` (the DynInitResult)."""
+    import time
+
+    import jax
+
+    from open_vins_tpu.init import dynamic_init
+
+    opts = dynamic_init.DynamicInitOptions()
+    arrays, summary = {}, {}
+    for name, inp in dyninit_inputs().items():
+        arrays.update({f"{name}_in_{k}": np.asarray(v)
+                       for k, v in inp._asdict().items()})
+        t0 = time.time()
+        res = jax.jit(lambda i: dynamic_init.initialize(i, opts))(inp)
+        arrays.update({f"{name}_jit_{k}": np.asarray(v)
+                       for k, v in res._asdict().items()})
+        summary[name] = {"success": bool(res.success),
+                         "shape": list(np.asarray(inp.uvn).shape),
+                         "seconds": time.time() - t0}
+        if bool(res.success):
+            res = dynamic_init.initialize(inp, opts)
+            arrays.update({f"{name}_eager_{k}": np.asarray(v)
+                           for k, v in res._asdict().items()})
+            summary[name]["eager_success"] = bool(res.success)
+    meta = {"cases": {k: list(v) for k, v in DYNINIT_CASES.items()},
+            "opts": "DynamicInitOptions()"}
+    np.savez_compressed(path, **arrays, meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({"path": path, "bytes": os.path.getsize(path),
+                      **summary}))
+
+
+def v102_autoinit_meta():
+    return dict(v102_meta(), max_search_s=40.0,
+                catchup_frames=CATCHUP_FRAMES)
+
+
+def jax_auto_init_on_port_stream(meta):
+    """JAX's `auto_init_state` (examples/run_benchmark_suite.py:126-230) on
+    the port's CPU staging of `meta`'s stream, every routed attempt
+    recorded; then JAX's `run_filter_from` from that state over the whole
+    replay and `background.catch_up` from it over the next
+    `catchup_frames` camera times.  Returns the reference arrays."""
+    import importlib
+    import types
+
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.core.layout import FilterConfig
+    from open_vins_tpu.init import background, router
+    from open_vins_tpu.models import manager, runner
+    from open_vins_tpu.models import triangulation as tri
+    from open_vins_tpu.models.propagator import ImuWindow
+    from open_vins_tpu.ops import lie
+    from open_vins_tpu.sim import simulator
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.models import runner as trunner
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    suite = importlib.import_module("run_benchmark_suite")
+    sim_t, _, run_t = convert.stage_stream(meta, "cpu")
+    a = convert.frames_to_numpy(run_t.frames)
+    frames = manager.FrameInput(
+        win=ImuWindow(t=a["win_t"], w=a["win_w"], a=a["win_a"]),
+        t_new=a["t_new"], ids=a["ids"], uv=a["uv"], uvn=a["uvn"],
+        mask=a["mask"])
+    gt = {k: getattr(run_t, k).numpy() for k in ("gt_q", "gt_p", "gt_v")}
+    run = runner.SimRun(frames=frames, **gt)
+    sim = types.SimpleNamespace(**{
+        k: jnp.asarray(getattr(sim_t, k).numpy())
+        for k in ("cam_R_ItoC", "cam_p_IinC", "cam_intr")})
+    params = simulator.SimParams(**meta["sim"])
+    cfg = FilterConfig(**meta["cfg"])
+
+    calls = []
+    try_init = router.try_initialize
+
+    def recording(*args, **kw):
+        kind, res = try_init(*args, **kw)
+        calls.append((float(args[4]), kw.get("dyn_input"), kind, res))
+        return kind, res
+
+    router.try_initialize = recording
+    try:
+        st0, k0, kind, t_init = suite.auto_init_state(
+            run, sim, cfg, params, max_search_s=meta["max_search_s"])
+    finally:
+        router.try_initialize = try_init
+    out = {"ref_k0": np.int64(k0), "ref_kind": np.asarray(kind),
+           "ref_t_init": np.float64(t_init),
+           "ref_attempts": np.int64(len(calls)),
+           "ref_attempt_t": np.asarray([c[0] for c in calls]),
+           "ref_attempt_kinds": np.asarray([c[2] for c in calls])}
+    out.update({f"state0_{k}": np.asarray(v)
+                for k, v in st0._asdict().items()})
+    if kind == "dynamic":
+        inp, res = calls[-1][1], calls[-1][3]
+        out.update({f"dyn_in_{k}": np.asarray(v)
+                    for k, v in inp._asdict().items()})
+        out.update({f"dyn_res_{k}": np.asarray(v)
+                    for k, v in res._asdict().items()})
+
+    # tests/test_corpus_replay.py:133-143's gates on the init state
+    R_i = np.asarray(lie.quat_2_rot(st0.q))
+    R_t = np.asarray(lie.quat_2_rot(jnp.asarray(gt["gt_q"][k0])))
+    g_i, g_t = R_i @ np.array([0.0, 0.0, 1.0]), R_t @ np.array([0.0, 0, 1])
+    out["ref_init_gravity_err_deg"] = np.float64(np.degrees(np.arccos(
+        np.clip(g_i @ g_t, -1.0, 1.0))))
+    out["ref_init_speed_err"] = np.float64(abs(
+        np.linalg.norm(np.asarray(st0.v)) - np.linalg.norm(gt["gt_v"][k0])))
+
+    sim_ns = types.SimpleNamespace(bias_g_traj=None, bias_a_traj=None)
+    st, fouts = jax.jit(lambda s0, k: runner.run_filter_from(
+        cfg, tri.TriangulationOptions(), sim_ns, params, run, s0, k,
+        max_tracks=meta["max_tracks"]))(st0, jnp.asarray(k0, jnp.int32))
+    qs, ps, covs6 = (np.asarray(fouts[0]), np.asarray(fouts[1]),
+                     np.asarray(fouts[3]))
+    from chip_smoke import init_replay_metrics
+
+    ate_p, ate_o, nees = init_replay_metrics(qs, ps, covs6, gt["gt_q"],
+                                             gt["gt_p"], k0)
+    out.update(ref_p=ps, ref_q=qs, ref_ate_pos_m=np.float64(ate_p),
+               ref_ate_ori_deg=np.float64(ate_o),
+               ref_nees_full=np.float64(nees),
+               ref_finite=np.bool_(np.isfinite(np.asarray(st.cov)).all()))
+
+    # the catch-up over the camera times queued behind the attempt
+    queued = [float(x) for x in a["t_new"][k0:k0 + meta["catchup_frames"]]]
+    make_window = trunner.window_packer(*trunner.imu_stream(run_t))
+    caught = background.catch_up(st0, cfg, queued, make_window,
+                                 params.imu_rate)
+    out["ref_catchup_t"] = np.asarray(queued)
+    out.update({f"catchup_{k}": np.asarray(v)
+                for k, v in caught._asdict().items()})
+    return out
+
+
+def write_autoinit_reference(path=V102_AUTOINIT_REF):
+    meta = v102_autoinit_meta()
+    ref = jax_auto_init_on_port_stream(meta)
+    np.savez_compressed(path, **ref, meta=np.asarray(json.dumps(meta)))
+    print(json.dumps({"path": path, "bytes": os.path.getsize(path),
+                      **{k: (v.item() if v.ndim == 0 else None)
+                         for k, v in ref.items() if k.startswith("ref_")
+                         and v.ndim == 0}}))
+
+
 def _cfg_dim(cfg):
     from open_vins_tpu_torch.core.layout import FilterConfig
 
@@ -893,6 +1152,40 @@ def test_forms_refs_match_fresh_run(name, tmp_path):
     assert ref["ref_finite"] and ref["ref_rmse"] < 0.05
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["static", "dyninit", "autoinit",
+                                  *SINGLE_REFS, "aruco"])
+def test_init_refs_match_fresh_run(name, tmp_path):
+    """The references of the initialization, single-depth and aruco checks
+    equal a fresh derivation: flags, routes, counts and integers exactly,
+    floats within 1e-4 of each array's max (XLA's CPU code may round
+    differently on another host ISA)."""
+    fresh = str(tmp_path / "fresh.npz")
+    path = {"static": STATIC_REF, "dyninit": DYNINIT_REF,
+            "autoinit": V102_AUTOINIT_REF, "aruco": ARUCO_REF,
+            **{k: v[0] for k, v in SINGLE_REFS.items()}}[name]
+    if name == "static":
+        write_static_reference(fresh)
+    elif name == "dyninit":
+        write_dyninit_reference(fresh)
+    elif name == "autoinit":
+        write_autoinit_reference(fresh)
+    elif name == "aruco":
+        write_sim_reference(fresh, ARUCO_META)
+    else:
+        write_oppoint_reference(fresh, cfg_kw=SINGLE_REFS[name][1])
+    with np.load(path) as z, np.load(fresh) as f:
+        assert set(z.files) == set(f.files)
+        for k in z.files:
+            a, b = z[k], f[k]
+            if a.dtype.kind in "biuUS" or k == "meta":
+                np.testing.assert_array_equal(b, a, err_msg=k)
+            else:
+                np.testing.assert_allclose(
+                    b, a, rtol=0, atol=1e-4 * max(np.abs(a).max(), 1e-30),
+                    err_msg=k)
+
+
 def test_stop_and_go_copy_matches_test_slam_stack():
     """chip_smoke.py's numpy copy of the stop-and-go trajectory equals
     tests/test_slam_stack.py's JAX original."""
@@ -907,7 +1200,10 @@ def test_stop_and_go_copy_matches_test_slam_stack():
 if __name__ == "__main__":
     if {"--write", "--write-oppoint", "--write-sim-refs",
             "--write-ensemble-ref", "--write-forms-ref",
-            "--write-zupt-ref", "--write-rendered-ref"} & set(sys.argv):
+            "--write-zupt-ref", "--write-rendered-ref",
+            "--write-single-ref", "--write-aruco-ref",
+            "--write-dyninit-ref", "--write-autoinit-ref",
+            "--write-static-ref"} & set(sys.argv):
         import jax
 
         # stage on the CPU, as the tests re-stage it
@@ -928,5 +1224,17 @@ if __name__ == "__main__":
             write_sim_reference(ZUPT_REF, ZUPT_META)
         if "--write-rendered-ref" in sys.argv:
             write_rendered_reference()
+        if "--write-single-ref" in sys.argv:
+            for path, cfg_kw in SINGLE_REFS.values():
+                write_oppoint_reference(path, cfg_kw=cfg_kw)
+        if "--write-aruco-ref" in sys.argv:
+            write_sim_reference(ARUCO_REF, ARUCO_META)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        if "--write-static-ref" in sys.argv:
+            write_static_reference()
+        if "--write-dyninit-ref" in sys.argv:
+            write_dyninit_reference()
+        if "--write-autoinit-ref" in sys.argv:
+            write_autoinit_reference()
     else:
         print(__doc__)

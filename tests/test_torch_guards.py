@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it imports neither JAX nor the JAX package,
 its entry points default to the GPU and never fall back to the CPU on their
 own, `chip_smoke.py` fails without a GPU or without the repository around
-it, and `convert.py` carries state across unchanged."""
+it, `convert.py` carries state across unchanged, and every update
+configuration of the JAX package's step_frame steps."""
 
 import ast
 import os
@@ -50,7 +51,9 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for module in ("frontend/klt.py", "frontend/ransac.py",
                    "frontend/tracker.py", "frontend/descriptor.py",
-                   "sim/render.py"):
+                   "sim/render.py", "init/static_init.py",
+                   "init/dynamic_init.py", "init/router.py",
+                   "init/background.py"):
         assert f"open_vins_tpu_torch/{module}" in names, module
 
 
@@ -75,6 +78,30 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trajectories.load_trajectory_file(
             ROOT / "results" / "suite" / "truths" / "V1_02_medium.txt")
+
+
+def test_init_entry_points_default_to_cuda():
+    """The initialization's entry points: device=None means CUDA."""
+    if torch.cuda.is_available():
+        return
+    from open_vins_tpu_torch.init import router
+    from open_vins_tpu_torch.models import propagator
+
+    run, calib, _ = convert.load_staged_run(FIXTURE, "cpu")
+    params = simulator.SimParams()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.auto_init_state(run, calib, FilterConfig(), params)
+    imu_t = np.arange(40) * 0.005
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        propagator.make_window(imu_t, np.zeros((40, 3)), np.zeros((40, 3)),
+                               0.0, 0.1, 24)
+    hist = {i: ([0.0, 0.1, 0.2], [np.zeros(2)] * 3) for i in range(8)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        router.build_dyn_input(
+            hist, [0.0, 0.1, 0.2],
+            runner.window_packer(imu_t, np.zeros((40, 3)),
+                                 np.zeros((40, 3))),
+            np.eye(3), np.zeros(3), K=24)
 
 
 def test_front_end_entry_points_default_to_cuda():
@@ -146,6 +173,7 @@ def test_convert_round_trip():
         np.testing.assert_array_equal(fr[k], v, err_msg=k)
 
 
+@pytest.mark.parametrize("max_slam", [0, 4])
 @pytest.mark.parametrize("kw", [
     dict(joint_update_form="woodbury"), dict(joint_update_form="spd"),
     dict(joint_update_form="newton", gauge_deflation=True,
@@ -153,23 +181,25 @@ def test_convert_round_trip():
     dict(joint_vision_update=False), dict(fast_compress=True),
     dict(use_zupt=True), dict(use_zupt=True, zupt_explicit_motion=True),
     dict(feat_rep_slam="ANCHORED_MSCKF_INVERSE_DEPTH", use_zupt=True,
-         joint_vision_update=False)], ids=str)
-def test_update_configurations_are_ported(kw):
-    """Every update configuration of the JAX package's step_frame passes
-    the port's guard (max_slam = 0 too)."""
-    from open_vins_tpu_torch.models import manager
-
-    for max_slam in (0, 4):
-        manager._require_ported(FilterConfig(max_slam=max_slam, **kw))
-
-
-@pytest.mark.parametrize("kw", [
+         joint_vision_update=False),
     dict(feat_rep_slam="ANCHORED_INVERSE_DEPTH_SINGLE"),
     dict(num_aruco_tags=2)], ids=str)
-def test_unported_configurations_raise(kw):
-    """Only the 1-dof single-depth landmarks and aruco landmarks raise."""
+def test_every_update_configuration_steps(kw, max_slam):
+    """Every update configuration of the JAX package's step_frame, the
+    single-depth landmarks and aruco landmarks too, steps in the port: the
+    graft widths (5 clones, <= 8 MSCKF features, ACI²) over the fixture's
+    first 8 frames, which fill the window and reach delayed init, with a
+    finite covariance after every step."""
     from open_vins_tpu_torch.models import manager
 
-    with pytest.raises(NotImplementedError):
-        manager._require_ported(FilterConfig(max_slam=4, **kw))
-    manager._require_ported(FilterConfig(max_slam=0, **kw))
+    cfg = FilterConfig(max_clones=5, max_slam=max_slam, num_cams=1,
+                       max_msckf_in_update=8, integration="analytical", **kw)
+    run, calib, _ = convert.load_staged_run(FIXTURE, "cpu")
+    state = runner._initial_state(cfg, calib, run)
+    table = ft.init_table(cfg, 64, "cpu")
+    for k in range(8):
+        state, table, diag = manager.step_frame(
+            state, table, cfg, tri.TriangulationOptions(),
+            runner.frame_at(run.frames, k))
+        assert torch.isfinite(state.cov).all(), f"frame {k}"
+    assert int(state.n_clones) == 5

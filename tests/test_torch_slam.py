@@ -275,3 +275,39 @@ def test_evict_matches_jax(pre_update):
                                       np.asarray(getattr(st_j, k)), err_msg=k)
     np.testing.assert_array_equal(np_of(st_t.cov), np.asarray(st_j.cov))
     assert_table_equal(tb_t, tb_j)
+
+
+ARUCO_KW = dict(num_aruco_tags=64, sigma_pix_aruco=3.0,
+                chi2_multiplier_aruco=2.0)
+
+
+def test_aruco_landmark_mask_matches_jax():
+    """The 4·tag + corner id contract, with and without tags."""
+    ids = np.array([-1, 0, 4 * 16, 4 * 16 + 1, 500], np.int32)
+    for tags in (0, 16):
+        np.testing.assert_array_equal(
+            np_of(tslam._aruco_landmark_mask(TCfg(num_aruco_tags=tags),
+                                             torch.as_tensor(ids))),
+            np.asarray(jslam._aruco_landmark_mask(JCfg(num_aruco_tags=tags),
+                                                  jnp.asarray(ids))))
+
+
+@pytest.mark.parametrize("ordering", ["joint", "sequential"])
+def test_step_frame_parity_aruco(ordering):
+    """The small SLAM problem with ids 0..256 aruco tag corners (64 tags) at
+    sigma_pix_aruco 3 and a doubled χ² multiplier: aruco-first promotion,
+    whitened rows and the aruco gate, step for step over 16 frames in the
+    joint "qr" update and in the sequential ordering."""
+    pb = slam_problem()
+    kw = dict(ARUCO_KW, joint_vision_update=ordering == "joint")
+    pb = pb._replace(cfg_jax=pb.cfg_jax._replace(**kw),
+                     cfg_port=pb.cfg_port._replace(**kw))
+    frames_t = jax_frames_to_port(pb.frames)
+    n_aruco = 0
+    for k, st, tb, post in _jax_steps(pb, pb.cfg_jax, 16):
+        _check_step(st, tb, pb.cfg_port, pb.tri_port,
+                    trun.frame_at(frames_t, k), post, pb.cfg_jax,
+                    f"frame {k}")
+        ids = np.asarray(post[0].slam_id)[np.asarray(post[0].slam_valid)]
+        n_aruco = max(n_aruco, int(((ids >= 0) & (ids <= 256)).sum()))
+    assert n_aruco > 0, "no aruco landmark entered the state"

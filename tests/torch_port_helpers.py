@@ -347,3 +347,31 @@ def ensemble_problem(max_slam=0, integration="rk4", seeds=(0, 1, 2),
                    frames, JCfg(**kw), tc,
                    jtri.TriangulationOptions(max_runs=2),
                    ttri.TriangulationOptions(max_runs=2))
+
+
+def jax_pre_update(pb, st, tb, k):
+    """Steps 1-4 of JAX's step_frame for frame k (marginalize, propagate
+    and clone, ingest; the promotions are reserved inside delayed_init)."""
+    import jax
+    import jax.numpy as jnp
+
+    from open_vins_tpu.core import ekf as jekf
+    from open_vins_tpu.core import state as jstate
+    from open_vins_tpu.models import manager as jman
+    from open_vins_tpu.models import updater_slam as jslam
+
+    jc = pb.cfg_jax
+    frame = jax.tree_util.tree_map(lambda a: jnp.asarray(a[k]), pb.frames)
+    full = st.n_clones >= jc.max_clones
+    slot_old = jstate.oldest_slot(st, jc)
+    st_m = jekf.marginalize_clone(jslam.change_anchors(st, jc, slot_old), jc,
+                                  slot_old)
+    st = jax.tree_util.tree_map(lambda a, b: jnp.where(full, a, b), st_m, st)
+    tb = jax.tree_util.tree_map(
+        lambda a, b: jnp.where(full, a, b),
+        jman.ft.clear_clone_column(tb, slot_old), tb)
+    st = jman.propagate(st, jc, frame.win, frame.t_new)
+    st = jekf.augment_clone(st, jc, frame.win.w[-1] - st.bg)
+    tb = jman.ft.ingest_frame(tb, jc, st.head, frame.ids, frame.uv,
+                              frame.uvn, frame.mask)
+    return st, tb

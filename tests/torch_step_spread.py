@@ -2,6 +2,7 @@
 
     python tests/torch_step_spread.py [--problem graft|slam|wide] [--frames N]
                                       [--set FIELD=VALUE ...]
+    python tests/torch_step_spread.py --problem dyninit
 
 For every frame, both packages step from the same JAX state and table.  The
 script prints, per frame, the number of MSCKF features, the port's
@@ -20,6 +21,14 @@ slots, ACI², on the staged frames below); `wide` is the staged reference-width 
 reported from frame 10 on, where the window is full.  `--set` overrides
 fields of the problem's filter configuration in both packages, for example
 `--set joint_update_form=newton --set newton_iters=14`.
+
+`dyninit` is the dynamic initializer instead of a step: for each problem
+of `open_vins_tpu_torch/data/dyninit_seed11_ref.npz` (tests/test_dynamic_init
+.py's), JAX's jitted `initialize` run now, against the eager run and the
+port's run on the same input, each output's gap (q, p, v, bg, ba, cov15)
+relative to its max in the jitted result; the eager run is the one stored
+in the file (JAX compiles the eager LM scan as slowly as the jitted
+program).  tests/test_torch_dynamic_init.py's tolerances follow from it.
 """
 
 from __future__ import annotations
@@ -47,14 +56,44 @@ from torch_port_helpers import (STATE_VALUE_FIELDS,  # noqa: E402
                                 jax_table_to_port, slam_problem)
 
 
+def dyninit_spread():
+    import jax.numpy as jnp
+
+    from open_vins_tpu.init import dynamic_init as jdi
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.init import dynamic_init as tdi
+    from test_torch_dynamic_init import REF, TOL, _load, _result_gaps
+
+    with np.load(REF) as z:
+        cases = json.loads(str(z["meta"]))["cases"]
+    for case in cases:
+        inp = _load(case)
+        jit = jax.jit(lambda i: jdi.initialize(i, jdi.DynamicInitOptions()))(
+            jdi.DynInitInput(**{k: jnp.asarray(v) for k, v in inp.items()}))
+        jit = {k: np.asarray(v) for k, v in jit._asdict().items()}
+        port = convert.dyn_result_to_numpy(tdi.initialize(
+            convert.dyn_input_from_numpy(inp, "cpu"),
+            tdi.DynamicInitOptions()))
+        eager = _load(case, "eager")
+        print(json.dumps({
+            "problem": case, "success_jax": bool(jit["success"]),
+            "success_port": bool(port["success"]),
+            "port_gap_rel": _result_gaps(port, jit),
+            "jax_eager_gap_rel": (_result_gaps(eager, jit) if eager
+                                  else None),
+            "tol": TOL}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--problem", choices=("graft", "slam", "wide"),
+    ap.add_argument("--problem", choices=("graft", "slam", "wide", "dyninit"),
                     default="graft")
     ap.add_argument("--frames", type=int, default=9)
     ap.add_argument("--set", action="append", default=[],
                     metavar="FIELD=VALUE")
     args = ap.parse_args()
+    if args.problem == "dyninit":
+        return dyninit_spread()
     pb, first = {"graft": (graft_problem, 0), "slam": (slam_problem, 0),
                  "wide": (fixture_problem, 10)}[args.problem]
     pb = pb()

@@ -2,7 +2,8 @@
 
     python tools/torch_main_path_profile.py
         [--config msckf|oppoint|woodbury|spd|newton|sequential|zupt|
-                  largemap|replay|ensemble8|rendered|tracker]
+                  largemap|replay|ensemble8|rendered|tracker|single|
+                  single_sequential|aruco|dyninit|autoinit]
         [--warm 40] [--frames 40]
 
 Steps a closed loop (`models/manager.step_frame`) through `--warm` frames,
@@ -39,8 +40,24 @@ images->pose pipeline (752x480 stereo, `rendered_stereo8_seed0_ref.npz`,
 staged on the card): every frame renders both cameras, tracks them
 (`runner.render_and_track`) and steps the filter on the tracker's packets;
 `tracker` is the tracker alone (`runner.track_images`) on the same stream's
-images rendered up front.  Needs a CUDA device; the card's name and power
-limit are printed with the numbers.
+images rendered up front.  `single` and `single_sequential` are the
+operating point with ANCHORED_INVERSE_DEPTH_SINGLE landmarks in the joint
+"qr" update and in the sequential ordering
+(`oppoint_single_sim20_seed0_ref.npz`, `sequential_single_sim20_seed0_ref
+.npz`) on the fixture's frames; `aruco` is tests/test_aruco_sigma.py's
+stream with aruco landmarks (`aruco_sim5_seed3_ref.npz`, 99 frames, staged
+on the card; the warm-up shrinks to fit).
+
+`dyninit` and `autoinit` profile initialization attempts instead of
+frames: `dyninit` one routed dynamic attempt (`router.try_initialize`) on
+tests/test_dynamic_init.py's seed-11 problem (`dyninit_seed11_ref.npz`,
+after one untraced attempt), `autoinit` the whole routed search of
+`runner.auto_init_state` on the V1_02 replay (`v102_autoinit_seed0_ref
+.npz`'s stream, the port's CPU staging moved to the card); each prints the
+attempts, host ms, GPU kernels and busy ms per attempt, the GPU's idle
+share and the host ms of the attempt's one read of its success flag (the
+`router.INIT_SUCCESS_READ` range).  Needs a CUDA device; the card's name
+and power limit are printed with the numbers.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ from open_vins_tpu_torch.models import manager, runner  # noqa: E402
 from open_vins_tpu_torch.models import triangulation as tri  # noqa: E402
 from open_vins_tpu_torch.models import updater_slam  # noqa: E402
 from open_vins_tpu_torch.frontend import klt, ransac  # noqa: E402
+from open_vins_tpu_torch.init import router  # noqa: E402
 from open_vins_tpu_torch.ops import kernels, lie  # noqa: E402
 from open_vins_tpu_torch.sim import render, simulator  # noqa: E402
 
@@ -72,18 +90,26 @@ DATA = os.path.join(ROOT, "open_vins_tpu_torch", "data")
 FIXTURE = os.path.join(DATA, "msckf_sim20_seed0.npz")
 OPPOINT_REF = os.path.join(DATA, "oppoint_sim20_seed0_ref.npz")
 STAGED_REFS = {"largemap": os.path.join(DATA, "largemap_sim8_seed0_ref.npz"),
-               "replay": os.path.join(DATA, "v102_replay40_seed0_ref.npz")}
+               "replay": os.path.join(DATA, "v102_replay40_seed0_ref.npz"),
+               "aruco": os.path.join(DATA, "aruco_sim5_seed3_ref.npz")}
 ENSEMBLE_REF = os.path.join(DATA, "ensemble8_sim20_ref.npz")
 # configurations on the fixture's frames, each with its reference file
 FRAME_REFS = {"oppoint": OPPOINT_REF,
               "sequential": os.path.join(DATA,
                                          "sequential_sim20_seed0_ref.npz"),
               **{form: os.path.join(DATA, f"oppoint_{form}_sim20_seed0_ref.npz")
-                 for form in ("woodbury", "spd", "newton")}}
+                 for form in ("woodbury", "spd", "newton")},
+              "single": os.path.join(DATA,
+                                     "oppoint_single_sim20_seed0_ref.npz"),
+              "single_sequential": os.path.join(
+                  DATA, "sequential_single_sim20_seed0_ref.npz")}
+DYNINIT_REF = os.path.join(DATA, "dyninit_seed11_ref.npz")
+AUTOINIT_REF = os.path.join(DATA, "v102_autoinit_seed0_ref.npz")
 ZUPT_REF = os.path.join(DATA, "zupt_stopgo20_seed0_ref.npz")
 RENDERED_REF = os.path.join(DATA, "rendered_stereo8_seed0_ref.npz")
 FLAG_READS = {"init": updater_slam.INIT_FLAG_READ,
-              "zupt": manager.ZUPT_FLAG_READ}
+              "zupt": manager.ZUPT_FLAG_READ,
+              "init_success": router.INIT_SUCCESS_READ}
 
 
 def _union_us(intervals):
@@ -99,14 +125,86 @@ def _union_us(intervals):
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def profile_init(config):
+    """The `dyninit` and `autoinit` configurations (module docstring)."""
+    if config == "dyninit":
+        with __import__("numpy").load(DYNINIT_REF) as z:
+            inp = convert.dyn_input_from_numpy(
+                {k[len("recover_in_"):]: z[k] for k in z.files
+                 if k.startswith("recover_in_")}, "cuda")
+        ropts = router.RouterOptions()
+        imu = torch.zeros((3, 8), device="cuda")
+
+        def run():
+            # the disparities route dynamic; the static buffer is unused
+            kind, _ = router.try_initialize(ropts, imu[0], imu[1:].T,
+                                            imu[1:].T, 0.0, 99.0, 99.0,
+                                            dyn_input=inp)
+            return [kind]
+
+        run()
+    else:
+        ref = convert.load_reference(AUTOINIT_REF)
+        meta = ref["meta"]
+        sim, params, run_c = convert.stage_stream(meta, "cpu")
+        run_d = runner._to(run_c, "cuda")
+        calib = runner._to(runner.sim_calib(sim), "cuda")
+        cfg = FilterConfig(**meta["cfg"])
+
+        def run():
+            attempts = []
+            runner.auto_init_state(run_d, calib, cfg, params,
+                                   max_search_s=meta["max_search_s"],
+                                   device="cuda", attempts=attempts)
+            return [a[1] for a in attempts]
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        kinds = run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    gpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name not in FLAG_READS.values()]
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in gpu])
+    reads = [e.time_range.elapsed_us() for e in prof.events()
+             if e.name == router.INIT_SUCCESS_READ
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    n = max(len(kinds), 1)
+    print(json.dumps({
+        "config": config, "device": torch.cuda.get_device_name(0),
+        "nvidia_smi": _smi(), "attempts": len(kinds), "kinds": kinds,
+        "traced_host_ms_per_attempt": 1e3 * wall_s / n,
+        "gpu_kernels_per_attempt": len(gpu) / n,
+        "gpu_busy_ms_per_attempt": busy_us / 1e3 / n,
+        "gpu_idle_share": 1.0 - busy_us / 1e6 / wall_s,
+        "success_reads": len(reads),
+        "success_read_host_ms": sum(reads) / 1e3}))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="msckf",
-                    choices=("msckf", *FRAME_REFS, "zupt", "largemap",
-                             "replay", "ensemble8", "rendered", "tracker"))
+                    choices=("msckf", *FRAME_REFS, "zupt", *STAGED_REFS,
+                             "ensemble8", "rendered", "tracker", "dyninit",
+                             "autoinit"))
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--frames", type=int, default=40)
     args = ap.parse_args()
+    if args.config in ("dyninit", "autoinit"):
+        profile_init(args.config)
+        return
 
     opts = tri.TriangulationOptions()
     tracked = []  # the front end's valid tracks per traced frame
@@ -199,6 +297,10 @@ def main():
                 state, table, cfg, opts, runner.frame_at(run.frames, k))
             return diag
 
+    if args.config in STAGED_REFS or args.config in FRAME_REFS:
+        # a short stream: the warm-up shrinks so both windows fit
+        args.warm = max(0, min(args.warm, run.frames.t_new.shape[0]
+                               - 2 * args.frames))
     for k in range(args.warm):
         step(k)
     torch.cuda.synchronize()
@@ -244,10 +346,7 @@ def main():
                       if e.name == name
                       and e.device_type == torch.autograd.DeviceType.CPU]
                   for k, name in FLAG_READS.items()}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
 
     def mean(key):
         if diags[0] is None:  # the tracker alone
