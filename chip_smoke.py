@@ -151,12 +151,40 @@ so the exit code is not 0):
    the worker thread, the next 10 camera times queued, `join`) and
    `catch_up`, whose result from JAX's init state must equal JAX's
    `background.catch_up` (1e-5·‖P‖∞); `main_path_single` and
-   `main_path_single_sequential` run the operating point's frames with
-   ANCHORED_INVERSE_DEPTH_SINGLE landmarks (joint "qr", sequential), and
+   `main_path_single_sequential` run the operating point's first 200
+   frames with ANCHORED_INVERSE_DEPTH_SINGLE landmarks (joint "qr",
+   sequential; JAX's RMSE and NEES recomputed over the same frames), and
    `main_path_aruco` tests/test_aruco_sigma.py's stream staged on the card
    with ids 0..256 aruco tag corners: each within 0.01 m RMSE and 25 % NEES
    of its JAX run, with a finite covariance and a downdate launch per
    frame.
+13. the host utilities and the parallel layer: `config_oppoint` loads a
+   YAML tree written to a temporary directory with `utils.config.load`
+   (the operating point's FilterConfig) and runs 40 frames of the
+   operating point from it, within 0.01 m of the JAX run's positions;
+   `checkpoint_timing_traj_io` steps the operating point's frames 0..59
+   with `utils.timing.FrameTimer` writing the timing CSV (60 rows, stages
+   within the frame's total), saves a checkpoint after frame 30, loads it
+   back onto the card and steps to frame 60 again: the resumed state and
+   table must equal the uninterrupted ones (bitwise, else within the
+   step-parity tolerance with the gaps printed), and the trajectory goes
+   through a TUM file and back within 1e-6; `profiling` traces 3 more
+   frames with `utils.profiling.trace`, whose Chrome trace must hold the
+   `annotate` labels and a CUDA kernel event of `symmetric_downdate` in
+   every frame; `window_refine` runs `parallel.window_refine` on JAX's
+   operating-point state and table after 30 frames
+   (`window_refine_oppoint30_ref.npz`): JAX's landmark rows and `ok`
+   exactly, the refined window within twice the reference's own
+   jit-vs-eager spread of JAX's, the RMS not rising; `parallel_nccl_1`
+   and `parallel_gloo_2` run the row-sharded EKF update at the large
+   map's D (1434) and the distributed Schur BA on one NCCL rank in this
+   process and on two gloo ranks spawned on the one card with CUDA
+   tensors, each against the port's dense single-device result on the
+   card (covariance within 2e-4, poses within 1e-4, landmarks within
+   1e-3); `dryrun` runs `parallel.dryrun.run` on two ranks on the card at
+   the operating point (each rank's stream through `step_frame`, a
+   downdate launch per frame) with the sharded update and the BA, and
+   prints the host-bound caveat.
 
 Each closed loop sets the kernels' launch counts to 0 just before its timed
 run and reads them just after, and must launch `symmetric_downdate` at
@@ -277,6 +305,27 @@ SINGLE_REFS = {
     "single_sequential": os.path.join(
         DATA, "sequential_single_sim20_seed0_ref.npz")}
 ARUCO_REF = os.path.join(DATA, "aruco_sim5_seed3_ref.npz")
+
+
+WINDOW_REF = os.path.join(DATA, "window_refine_oppoint30_ref.npz")
+# the refined window against JAX's: twice the reference's own spread (its
+# jitted and eager runs differ by 8.7e-4 in R, 4.2e-4 in p, 1.7e-3 in the
+# landmarks, tests/test_torch_window_refine.py)
+WINDOW_TOL = {"R": 1.8e-3, "p": 8.5e-4, "landmarks": 3.4e-3,
+              "rms_before": 2e-8, "rms_after": 2e-8}
+WINDOW_LANDMARKS, WINDOW_ITERS = 64, 3
+CONFIG_FRAMES = 40
+RESUME_FRAMES, RESUME_SAVE = 60, 30
+PROFILE_FRAMES = 3
+STEP_COV_TOL = 5e-5  # × ‖P‖∞: the step-parity tolerance (ROADMAP.md)
+SHARDED_COV_TOL = 2e-4  # tests/test_sharded_ekf.py at the large map
+SHARDED_P_TOL = 1e-5
+BA_POSE_TOL, BA_LM_TOL = 1e-4, 1e-3  # tests/test_parallel.py:72-77
+PARALLEL_RANKS = 2
+# the single-depth loops' depth (of 399 staged frames), cut to keep the run
+# within its time budget: they repeat the operating point's cost with no
+# landmark update (ROADMAP.md, "Checks still open")
+SINGLE_FRAMES = 200
 
 
 def emit(obj):
@@ -2098,21 +2147,42 @@ def phase_background_init(run, calib):
         raise AssertionError("background_init: a gate failed")
 
 
+def _reference_prefix(ref, run, n):
+    """A JAX run's reference cut to its first n frames: positions, counts
+    and its RMSE and NEES recomputed over those frames from its per-frame
+    poses and pose covariances (`ref_covs6`), as `runner.pose_metrics`
+    computes the port's."""
+    import torch
+
+    from open_vins_tpu_torch.models import runner
+
+    rmse, nees = runner.pose_metrics(
+        *(torch.as_tensor(ref[k][:n]) for k in ("ref_q", "ref_p",
+                                                 "ref_covs6")),
+        run.gt_q[:n + 1], run.gt_p[:n + 1])
+    cut = {k: v[:n] for k, v in ref.items()
+           if k.startswith("ref_") and getattr(v, "ndim", 0) >= 1}
+    return dict(ref, **cut, ref_rmse=rmse, ref_nees=nees)
+
+
 def phase_single_depth(run, calib):
-    """The operating point's frames with ANCHORED_INVERSE_DEPTH_SINGLE
-    landmarks, in the joint "qr" update and in the sequential ordering,
-    each against the JAX run of its configuration: RMSE within 0.01 m,
-    NEES within 25 %, a finite covariance, a downdate launch per frame at
-    least.  Returns {name: row}."""
+    """The operating point's first SINGLE_FRAMES frames with
+    ANCHORED_INVERSE_DEPTH_SINGLE landmarks, in the joint "qr" update and in
+    the sequential ordering, each against the JAX run of its configuration
+    over the same frames: RMSE within 0.01 m, NEES within 25 %, a finite
+    covariance, a downdate launch per frame at least.  Returns {name:
+    row}."""
     from open_vins_tpu_torch import convert
     from open_vins_tpu_torch.core.layout import FilterConfig
 
     rows = {}
+    prefix = _prefix(run, SINGLE_FRAMES)
     for name, path in SINGLE_REFS.items():
-        ref = convert.load_reference(path)
+        ref = _reference_prefix(convert.load_reference(path), prefix,
+                                SINGLE_FRAMES)
         meta = ref["meta"]
         row, _, _ = _drive(f"main_path_{name}", FilterConfig(**meta["cfg"]),
-                           run, calib, ref, meta["max_tracks"])
+                           prefix, calib, ref, meta["max_tracks"])
         row["jax_n_slam_mean"] = float(ref["ref_n_slam"].mean())
         emit(row)
         _jax_gates(f"main_path_{name}", row, ref)
@@ -2156,6 +2226,440 @@ def phase_aruco():
         ids <= 4 * meta["cfg"]["num_aruco_tags"])).sum())
     emit(row)
     _jax_gates("main_path_aruco", row, ref)
+    return row
+
+
+def _write_config_tree(root):
+    """The reference's three-file YAML layout for the operating point
+    (estimator_config.yaml naming the two kalibr files), with the staged
+    run's IMU noise."""
+    with open(os.path.join(root, "kalibr_imu_chain.yaml"), "w") as f:
+        f.write("imu0:\n"
+                "  accelerometer_noise_density: 2.0e-3\n"
+                "  accelerometer_random_walk: 3.0e-3\n"
+                "  gyroscope_noise_density: 1.6968e-4\n"
+                "  gyroscope_random_walk: 1.9393e-5\n"
+                "  update_rate: 200.0\n")
+    with open(os.path.join(root, "kalibr_imucam_chain.yaml"), "w") as f:
+        f.write("cam0:\n"
+                "  T_imu_cam:\n"
+                "    - [0.0, -1.0, 0.0, 0.0]\n"
+                "    - [1.0, 0.0, 0.0, 0.0]\n"
+                "    - [0.0, 0.0, 1.0, 0.0]\n"
+                "    - [0.0, 0.0, 0.0, 1.0]\n"
+                "  intrinsics: [458.654, 457.296, 367.215, 248.375]\n"
+                "  distortion_coeffs: [0.0, 0.0, 0.0, 0.0]\n"
+                "  distortion_model: radtan\n"
+                "  resolution: [752, 480]\n")
+    path = os.path.join(root, "estimator_config.yaml")
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n"
+                "relative_config_imu: kalibr_imu_chain.yaml\n"
+                "relative_config_imucam: kalibr_imucam_chain.yaml\n"
+                "max_cameras: 1\nmax_clones: 11\nmax_slam: 50\n"
+                "max_msckf_in_update: 40\nintegration: analytical\n"
+                "use_fej: true\nfeat_rep_slam: GLOBAL_3D\n")
+    return path
+
+
+def phase_config(run, calib):
+    """`utils.config.load` on a YAML tree written to a temporary directory
+    must give the operating point's FilterConfig (newton_iters, which only
+    the newton form reads and no YAML key sets, aside), and 40 frames of
+    the operating point run from it: finite, within REF_RMSE_SPREAD_M of
+    the JAX run's positions, a downdate launch per frame."""
+    import tempfile
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.utils import config
+
+    ref = convert.load_reference(OPPOINT_REF)
+    want = FilterConfig(**ref["meta"]["cfg"])
+    with tempfile.TemporaryDirectory() as root:
+        loaded = config.load(_write_config_tree(root))
+    if loaded.filter._replace(newton_iters=want.newton_iters) != want:
+        raise AssertionError(f"config: {loaded.filter} is not {want}")
+    ref = dict(ref, ref_p=ref["ref_p"][:CONFIG_FRAMES])
+    row, outs, _ = _drive("config_oppoint", loaded.filter,
+                          _prefix(run, CONFIG_FRAMES), calib, ref,
+                          ref["meta"]["max_tracks"])
+    emit(row)
+    if not (row["finite"] and row["max_position_gap_to_jax_m"]
+            < REF_RMSE_SPREAD_M):
+        raise AssertionError(f"config: a gate failed: {row}")
+    return row
+
+
+def _timed_step(timer, state, table, cfg, opts, frame):
+    """The operating point's frame as `manager.step_frame` runs it
+    (`_step_core` for the joint update), its stages timed."""
+    from open_vins_tpu_torch.models import manager
+
+    timer.start_frame()
+    state, table, reserved = manager.pre_update(state, table, cfg, frame)
+    timer.stage("propagation")
+    state, table, H, res, diag, n_used = manager.build_joint_system(
+        state, cfg, table, opts, reserved)
+    timer.stage("msckf")
+    state, table, diag = manager.joint_update(state, cfg, table, H, res, diag,
+                                              n_used)
+    timer.stage("slam")
+    timer.end_frame(float(frame.t_new))
+    return state, table
+
+
+def _record_gaps(got, want):
+    """{field: max |got − want|} over two records' float fields, and
+    {field: equal} over all."""
+    import torch
+
+    gaps, equal = {}, {}
+    for k, v in want.items():
+        g = getattr(got, k)
+        equal[k] = torch.equal(g, v)
+        if v.is_floating_point():
+            gaps[k] = float((g - v).abs().max()) if v.numel() else 0.0
+    return gaps, equal
+
+
+def phase_resume(run, calib, smi):
+    """The operating point's frames 0..59 with `utils.timing.FrameTimer`
+    writing the reference's timing CSV (stages synchronized on the card),
+    a checkpoint written after frame 30 (`utils.checkpoint.save`), loaded
+    back onto the card and stepped to frame 60 again: the resumed state and
+    table must equal the uninterrupted ones (where a CUDA operation is not
+    deterministic, the gaps are printed per field and the covariance held
+    to STEP_COV_TOL·‖P‖∞, the values to 1e-4).  The trajectory is written
+    as TUM (`eval.traj_io`) and read back within 1e-6.  Returns (row, the
+    state and table at frame 60)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.eval import traj_io
+    from open_vins_tpu_torch.models import feature_table as ft
+    from open_vins_tpu_torch.models import manager, runner
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.ops import kernels
+    from open_vins_tpu_torch.utils import checkpoint, timing
+
+    meta = convert.load_reference(OPPOINT_REF)["meta"]
+    cfg, opts = FilterConfig(**meta["cfg"]), tri.TriangulationOptions()
+    state0 = runner._initial_state(cfg, calib, run)
+    table0 = ft.init_table(cfg, meta["max_tracks"], "cuda")
+    frames = [runner.frame_at(run.frames, k) for k in range(RESUME_FRAMES)]
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "frame30.npz")
+        timer = timing.FrameTimer(os.path.join(root, "timing.csv"),
+                                  device="cuda")
+        kernels.symmetric_downdate.launches = 0
+        t0 = time.perf_counter()
+        state, table, qs, ps = state0, table0, [], []
+        for k, fr in enumerate(frames):
+            if k == RESUME_SAVE:
+                checkpoint.save(ckpt, state, table, extra={"frame": k})
+            state, table = _timed_step(timer, state, table, cfg, opts, fr)
+            qs.append(state.q)
+            ps.append(state.p)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        timer.close()
+        launches = kernels.symmetric_downdate.launches
+        csv = timing.load_timing_csv(os.path.join(root, "timing.csv"))
+
+        st, tb, extra = checkpoint.load(ckpt, state0, table0, device="cuda")
+        for fr in frames[int(extra["frame"]):]:
+            st, tb, _ = manager.step_frame(st, tb, cfg, opts, fr)
+        st_gaps, st_equal = _record_gaps(st, state)
+        tb_gaps, tb_equal = _record_gaps(tb, table)
+
+        tum = os.path.join(root, "traj.txt")
+        t = run.frames.t_new[:RESUME_FRAMES].double().cpu().numpy()
+        p = torch.stack(ps).cpu().numpy()
+        q = torch.stack(qs).cpu().numpy()  # JPL q_GtoI = Hamilton q_ItoG
+        traj_io.save_tum(tum, t, p, q)
+        t_r, p_r, q_r = traj_io.load_tum(tum)
+    tum_gap = max(np.abs(t_r - t).max(), np.abs(p_r - p).max(),
+                  np.abs(q_r - q).max())
+    norm = float(state.cov.abs().sum(1).max())
+    bitwise = all(st_equal.values()) and all(tb_equal.values())
+    row = {"phase": "checkpoint_timing_traj_io", "frames": RESUME_FRAMES,
+           "saved_after_frame": RESUME_SAVE, "seconds": seconds,
+           "frames_per_s": RESUME_FRAMES / seconds, "nvidia_smi": smi,
+           "launches": {"symmetric_downdate": launches},
+           "resume_bitwise": bitwise,
+           "resume_state_gaps": {k: v for k, v in st_gaps.items() if v},
+           "resume_table_gaps": {k: v for k, v in tb_gaps.items() if v},
+           "resume_cov_gap_rel": st_gaps["cov"] / norm,
+           "timing_rows": int(csv["total"].shape[0]),
+           "timing_ms_mean": {c: 1e3 * float(np.mean(csv[c]))
+                              for c in ("propagation", "msckf", "slam",
+                                        "total")},
+           "tum_gap": float(tum_gap),
+           "finite": bool(torch.isfinite(state.cov).all())}
+    emit(row)
+    value_gap = max(v for k, v in st_gaps.items() if k != "cov")
+    if not (row["finite"] and launches >= RESUME_FRAMES
+            and (bitwise or (row["resume_cov_gap_rel"] <= STEP_COV_TOL
+                             and value_gap <= 1e-4
+                             and all(tb_equal[k] for k in
+                                     ("ids", "mbits", "seen"))))
+            and row["timing_rows"] == RESUME_FRAMES
+            and (csv["total"] > 0).all()
+            and (csv["propagation"] + csv["msckf"] + csv["slam"]
+                 <= csv["total"] + 1e-6).all()
+            and tum_gap <= 1e-6):
+        raise AssertionError(f"checkpoint/timing/traj_io: a gate failed: {row}")
+    return row, (state, table, cfg, opts)
+
+
+def phase_profiling(carry, run, smi):
+    """`utils.profiling.trace` over PROFILE_FRAMES more frames, each in an
+    `annotate` range: the Chrome trace it writes must hold the labels and
+    a CUDA kernel event of `symmetric_downdate` in every frame."""
+    import glob
+    import gzip
+    import tempfile
+
+    from open_vins_tpu_torch.models import manager, runner
+    from open_vins_tpu_torch.utils import profiling
+
+    state, table, cfg, opts = carry
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        with profiling.trace(root) as where:
+            if where != root:
+                raise AssertionError("profiling.trace did not start")
+            for k in range(RESUME_FRAMES, RESUME_FRAMES + PROFILE_FRAMES):
+                with profiling.annotate(f"frame_{k}"):
+                    state, table, _ = manager.step_frame(
+                        state, table, cfg, opts, runner.frame_at(run.frames,
+                                                                 k))
+        seconds = time.perf_counter() - t0
+        files = glob.glob(os.path.join(root, "*.pt.trace.json*"))
+        if len(files) != 1:
+            raise AssertionError(f"profiling: trace files {files}")
+        opener = gzip.open if files[0].endswith(".gz") else open
+        with opener(files[0], "rt") as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    downdates = [e for e in kernels if "symmetric_downdate" in e["name"]]
+    labels = {e.get("name") for e in events} & {
+        f"frame_{k}" for k in range(RESUME_FRAMES,
+                                    RESUME_FRAMES + PROFILE_FRAMES)}
+    row = {"phase": "profiling", "frames": PROFILE_FRAMES,
+           "seconds": seconds, "nvidia_smi": smi,
+           "cuda_kernel_events": len(kernels),
+           "symmetric_downdate_events": len(downdates),
+           "symmetric_downdate_us": [e.get("dur") for e in downdates],
+           "labels": sorted(labels)}
+    emit(row)
+    if len(downdates) < PROFILE_FRAMES or len(labels) != PROFILE_FRAMES:
+        raise AssertionError(f"profiling: a gate failed: {row}")
+    return row
+
+
+def phase_window_refine(smi):
+    """`parallel.window_refine` on the card on JAX's operating-point state
+    and table after 30 frames (`window_refine_oppoint30_ref.npz`): JAX's
+    landmark rows and `ok` exactly, the refined window and RMS within
+    WINDOW_TOL of JAX's and the RMS after at most the RMS before.  It also
+    prints how far the card's and JAX's f32 answers lie from the same
+    problem refined in f64 on the card (`f64_gaps_card_jax`)."""
+    import numpy as np
+    import torch
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import manager
+    from open_vins_tpu_torch.models import triangulation as tri
+    from open_vins_tpu_torch.parallel import distributed_ba, window_refine
+
+    with np.load(WINDOW_REF) as z:
+        meta = json.loads(str(z["meta"]))
+        state = convert.state_from_numpy(
+            {k[6:]: z[k] for k in z.files if k.startswith("state_")}, "cuda")
+        table = convert.table_from_numpy(
+            {k[6:]: z[k] for k in z.files if k.startswith("table_")}, "cuda")
+        ref = {k[4:]: z[k] for k in z.files if k.startswith("ref_")}
+    cfg, opts = FilterConfig(**meta["cfg"]), tri.TriangulationOptions()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, _ = window_refine.select_rows(table, WINDOW_LANDMARKS)
+    prob, ok = window_refine.build_problem(state, cfg, table, opts,
+                                           WINDOW_LANDMARKS,
+                                           manager.gather_feature_obs)
+    outs = window_refine.refine_window(
+        state, cfg, table, opts, manager.gather_feature_obs,
+        max_landmarks=WINDOW_LANDMARKS, iters=WINDOW_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(zip(("R", "p", "landmarks", "rms_before", "rms_after"),
+                   (o.cpu().numpy() for o in outs)))
+    gaps = {k: float(np.abs(got[k] - ref[k]).max()) for k in WINDOW_TOL}
+    prob64, _ = distributed_ba.refine(prob.replace(**{
+        k: v.double() for k, v in prob.items() if v.is_floating_point()}),
+        iters=WINDOW_ITERS)
+    f64 = {"R": prob64.R, "p": prob64.p, "landmarks": prob64.landmarks}
+    f64_gaps = {k: [float(np.abs(got[k] - v.cpu().numpy()).max()),
+                    float(np.abs(ref[k] - v.cpu().numpy()).max())]
+                for k, v in f64.items()}
+    row = {"phase": "window_refine", "seconds": seconds, "nvidia_smi": smi,
+           "f64_gaps_card_jax": f64_gaps,
+           "rows_equal": bool(np.array_equal(rows.cpu().numpy(),
+                                             ref["rows"])),
+           "ok_equal": bool(np.array_equal(ok.cpu().numpy(), ref["ok"])),
+           "landmarks_ok": int(ok.sum()), "gaps_to_jax": gaps,
+           "rms_before": float(got["rms_before"]),
+           "rms_after": float(got["rms_after"])}
+    emit(row)
+    if not (row["rows_equal"] and row["ok_equal"]
+            and all(gaps[k] <= WINDOW_TOL[k] for k in WINDOW_TOL)
+            and row["rms_after"] <= row["rms_before"]):
+        raise AssertionError(f"window_refine: a gate failed: {row}")
+    return row
+
+
+def _dense_references(st_np, H, res, r, cfg, prob):
+    """The port's dense single-device results on the card: the plain
+    update of the sharded system and one BA step and a 6-step refine."""
+    import torch
+
+    from open_vins_tpu_torch import convert
+    from open_vins_tpu_torch.core import ekf
+    from open_vins_tpu_torch.parallel import distributed_ba as dba
+
+    full = convert.state_from_numpy(st_np, "cuda")
+    Ht, rt, rdt = (torch.as_tensor(a, device="cuda") for a in (H, res, r))
+    dx, cov = ekf.kalman_update_math(full.cov, Ht, rt, rdt,
+                                     fuse_downdate=False)
+    dense = ekf.boxplus(full, cfg, dx).replace(cov=cov)
+    prob = prob.replace(**{k: v.to("cuda") for k, v in prob.items()})
+    step, _ = dba.ba_step(prob)
+    refined, _ = dba.refine(prob, iters=6)
+    return dense, step, refined
+
+
+def _parallel_gaps(name, sh, ba_step, ba_refine, dense, step, refined, D):
+    """A row of the sharded update's and the BA's gaps to the dense run."""
+    import numpy as np
+
+    cov = sh["cov"]
+    return {"sharded_cov_gap": float(np.abs(cov[:D, :D] - dense.cov.cpu()
+                                            .numpy()).max()),
+            "sharded_p_gap": float(np.abs(sh["p"] - dense.p.cpu().numpy())
+                                   .max()),
+            "sharded_padding_zero": bool(not cov[D:].any()
+                                         and not cov[:, D:].any()),
+            "ba_step_pose_gap": float(np.abs(ba_step["p"] - step.p.cpu()
+                                             .numpy()).max()),
+            "ba_step_landmark_gap": float(np.abs(
+                ba_step["landmarks"] - step.landmarks.cpu().numpy()).max()),
+            "ba_refine_pose_gap": float(np.abs(
+                ba_refine["p"] - refined.p.cpu().numpy()).max()),
+            "ba_refine_landmark_gap": float(np.abs(
+                ba_refine["landmarks"] - refined.landmarks.cpu().numpy())
+                .max()),
+            "ba_rmse_before": ba_refine["rmse_before"],
+            "ba_rmse_after": ba_refine["rmse_after"], "where": name}
+
+
+def _parallel_gates(row):
+    ok = (row["sharded_cov_gap"] <= SHARDED_COV_TOL
+          and row["sharded_p_gap"] <= SHARDED_P_TOL
+          and row["sharded_padding_zero"]
+          and row["ba_step_pose_gap"] <= BA_POSE_TOL
+          and row["ba_step_landmark_gap"] <= BA_LM_TOL
+          and row["ba_refine_pose_gap"] <= BA_POSE_TOL
+          and row["ba_refine_landmark_gap"] <= BA_LM_TOL
+          and row["ba_rmse_after"] < 0.2 * row["ba_rmse_before"])
+    if not ok:
+        raise AssertionError(f"{row['phase']}: a gate failed: {row}")
+
+
+def phase_parallel(smi):
+    """The row-sharded EKF update at the large map's D (the dry run's
+    synthetic system) and the distributed BA (make_ba_problem(L=32): one
+    step and a 6-step refine), each against the port's dense single-device
+    result on the card: on one NCCL rank in this process, then on
+    PARALLEL_RANKS ranks spawned on the one card with gloo and CUDA
+    tensors.  Sharded: covariance within SHARDED_COV_TOL, p within
+    SHARDED_P_TOL, the padding zero; BA: poses within BA_POSE_TOL,
+    landmarks within BA_LM_TOL, the refine's RMS below a fifth of the
+    start.  Returns the rows."""
+    import torch
+    import torch.distributed as dist
+
+    from open_vins_tpu_torch.parallel import distributed_ba as dba
+    from open_vins_tpu_torch.parallel import dryrun, mesh, sharded_ekf
+
+    cfg = dryrun.LARGE_MAP
+    st_np, H, res, r = dryrun.sharded_system(cfg)
+    prob, _ = dba.make_ba_problem(L=32, device="cpu")
+    dense, step, refined = _dense_references(st_np, H, res, r, cfg, prob)
+    prob_np = {k: v.numpy() for k, v in prob.items()}
+    tasks = [dryrun.sharded_task(st_np, H, res, r, cfg),
+             dryrun.ba_task(prob_np, step_only=True),
+             dryrun.ba_task(prob_np, iters=6)]
+    rows = []
+
+    t0 = time.perf_counter()
+    mesh.init_distributed("nccl", rank=0, world_size=1,
+                          init_method=f"tcp://localhost:{mesh.free_port()}")
+    try:
+        got = [dryrun._TASKS[name](0, 1, torch.device("cuda", 0), **kw)
+               for name, kw in tasks]
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "parallel_nccl_1", "ranks": 1, "backend": "nccl",
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+           **_parallel_gaps("nccl", *got, dense, step, refined,
+                            cfg.state_dim)}
+    emit(row)
+    _parallel_gates(row)
+    rows.append(row)
+
+    t0 = time.perf_counter()
+    got = dryrun.run_tasks(PARALLEL_RANKS, "gloo", tasks, device="cuda")
+    row = {"phase": f"parallel_gloo_{PARALLEL_RANKS}",
+           "ranks": PARALLEL_RANKS, "backend": "gloo (CUDA tensors, one card)",
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+           "padded_dim": sharded_ekf._padded_dim(cfg.state_dim,
+                                                 PARALLEL_RANKS),
+           **_parallel_gaps("gloo", *got, dense, step, refined,
+                            cfg.state_dim)}
+    emit(row)
+    _parallel_gates(row)
+    rows.append(row)
+    return rows
+
+
+def phase_dryrun(smi):
+    """`parallel.dryrun.run` on PARALLEL_RANKS ranks on the one card (gloo):
+    the ensemble at the operating point (each rank its own stream through
+    `manager.step_frame`, one downdate launch per frame), the sharded update
+    at the large map's D and the distributed BA; prints its lines, with the
+    host-bound caveat (the ranks share the host and the card)."""
+    from open_vins_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    out = dryrun.run(PARALLEL_RANKS, device="cuda", backend="gloo")
+    ens = out["ensemble"]
+    row = {"phase": "dryrun", "ranks": PARALLEL_RANKS,
+           "seconds": time.perf_counter() - t0, "nvidia_smi": smi,
+           "frames_per_rank": ens["frames"], "state_dim": ens["state_dim"],
+           "launches": {"symmetric_downdate": ens["launches"]},
+           "ensemble_pass_s": ens["dt_ensemble"],
+           "single_pass_s": ens["dt_single"],
+           "aggregate_steps_per_s": PARALLEL_RANKS * ens["frames"]
+           / ens["dt_ensemble"],
+           "single_steps_per_s": ens["frames"] / ens["dt_single"]}
+    emit(row)
     return row
 
 
@@ -2216,6 +2720,13 @@ def main():
     phase_background_init(ai_run, ai_calib)
     sd_rows = phase_single_depth(run, calib)
     ar_row = phase_aruco()
+    cf_row = phase_config(run, calib)
+    rs_row, carry = phase_resume(run, calib, smi)
+    phase_profiling(carry, run, smi)
+    del carry
+    phase_window_refine(smi)
+    phase_parallel(smi)
+    dr_row = phase_dryrun(smi)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     dd = dd_rows[OPPOINT_SHAPE + (True,)]
@@ -2241,6 +2752,9 @@ def main():
         **{f"launches_{name}": r["launches"]["symmetric_downdate"]
            for name, r in sd_rows.items()},
         "launches_aruco": ar_row["launches"]["symmetric_downdate"],
+        "launches_config": cf_row["launches"]["symmetric_downdate"],
+        "launches_resume": rs_row["launches"]["symmetric_downdate"],
+        "launches_dryrun_ranks": dr_row["launches"]["symmetric_downdate"],
         **_kernel_numbers(dd),
         "k_not_pht": [{"operands": name, "shape": [r["D"], r["m"]],
                        "library": "torch.addmm", **_kernel_numbers(r)}

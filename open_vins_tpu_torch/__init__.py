@@ -30,6 +30,14 @@ batched call is one launch): every EKF update's covariance downdate runs
 `ops/csrc/symmetric_downdate.cu`, and the Householder TSQR compression
 (`models.update_helper.compress_system`) runs its row blocks through
 `ops/csrc/householder_qr_blocks.cu`.
+
+The parallel layer (`parallel/`) runs on `torch.distributed`, one process
+per rank: the row-sharded EKF update, the distributed Schur BA, the
+sliding-window refinement and the multi-rank dry run
+(`python -m open_vins_tpu_torch.parallel.dryrun`).  The host utilities
+(`utils/`: the OpenVINS YAML loader, checkpoints, the timing CSV, profiler
+traces, the native sensor hub; `eval/traj_io`; `frontend/aruco` and
+`frontend/visualization`) complete the JAX package's modules.
 """
 
 import torch as _torch

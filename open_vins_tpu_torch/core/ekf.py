@@ -38,8 +38,8 @@ def _build_chi2_table(q=0.95, max_dof=_CHI2_MAX_DOF):
     return np.concatenate([[np.inf], _chi2.ppf(q, dof)]).astype(np.float32)
 
 
-# 0.95 chi-square quantile by dof (UpdaterMSCKF.cpp:52-55), host constant
-CHI2_95 = _build_chi2_table()
+# 0.95 chi-square quantile by dof (UpdaterMSCKF.cpp:52-55), built at a
+# device's first gate (scipy.stats takes seconds to import)
 _chi2_on_device: dict[torch.device, torch.Tensor] = {}
 
 
@@ -47,7 +47,7 @@ def chi2_gate(dof):
     """0.95 chi-square threshold for an integer dof tensor."""
     table = _chi2_on_device.get(dof.device)
     if table is None:
-        table = torch.as_tensor(CHI2_95, device=dof.device)
+        table = torch.as_tensor(_build_chi2_table(), device=dof.device)
         _chi2_on_device[dof.device] = table
     return table[torch.clamp(dof, 0, _CHI2_MAX_DOF).long()]
 
@@ -182,12 +182,15 @@ def set_initial_covariance(state: VioState, cfg: FilterConfig, diag):
     return state.replace(cov=torch.diag(torch.where(mask, diag, 0.0)))
 
 
-def kalman_update_math(cov, H, res, r_diag, ranges=None):
+def kalman_update_math(cov, H, res, r_diag, fuse_downdate=True, ranges=None):
     """The dense update: (dx [D], new_cov [D,D]) in the one-sweep form.
 
     With L = chol(H P Hᵀ + R) and Y = L⁻¹[PHtᵀ | res]:
         dx = Y₁ᵀ y,   P⁺ = sym(P − Y₁ᵀ Y₁)
-    — the downdate runs the `symmetric_downdate` kernel on CUDA.  `ranges`:
+    — with `fuse_downdate` the downdate runs the `symmetric_downdate`
+    kernel on CUDA; without it, it is the plain product P − Y₁ᵀY₁ averaged
+    with its transpose, the form the row-sharded update splits over ranks
+    (`parallel/sharded_ekf.py`), as in the reference.  `ranges`:
     static column support of H (rows exactly zero outside it); P·Hᵀ and S
     then contract over the support only.  A non-finite result (S indefinite
     in f32) turns the update into an exact no-op, selected on the device.
@@ -206,8 +209,12 @@ def kalman_update_math(cov, H, res, r_diag, ranges=None):
         L, torch.cat([PHt.T, res[:, None]], dim=1), upper=False)
     Y1, y = Yt[:, :D], Yt[:, D]
     dx = Y1.T @ y
-    K = Y1.T.contiguous()
-    new_cov = symmetric_downdate(cov, K, K)
+    if fuse_downdate:
+        K = Y1.T.contiguous()
+        new_cov = symmetric_downdate(cov, K, K)
+    else:
+        new_cov = cov - Y1.T @ Y1
+        new_cov = 0.5 * (new_cov + new_cov.T)
     ok = ((info == 0) & torch.isfinite(dx).all()
           & torch.isfinite(new_cov).all())
     dx = torch.where(ok, dx, 0.0)

@@ -31,8 +31,9 @@ and one of whether delayed init has work (see
 
 Beside the step: `propagate_and_clone` (the background initializer's
 catch-up primitive), `get_active_features` (the tracked features
-re-triangulated for publishing) and the two warm starts,
-`initialize_from_gt` and `initialize_from_dynamic`.
+re-triangulated for publishing), the two warm starts,
+`initialize_from_gt` and `initialize_from_dynamic`, and
+`seed_imu_intrinsics` (the YAML-seeded IMU intrinsics).
 """
 
 from __future__ import annotations
@@ -482,3 +483,20 @@ def get_active_features(state: VioState, cfg: FilterConfig,
     T = table.ids.shape[0]
     ids = torch.where(rows < T, table.ids[torch.clamp(rows, max=T - 1)], -1)
     return torch.where(ok[:, None], p_f, 0.0), ids, ok
+
+
+def seed_imu_intrinsics(st: VioState, imu_calib) -> VioState:
+    """Apply yaml-seeded IMU intrinsic initial values to a fresh state.
+
+    Parity with the reference seeding state values from kalibr_imu_chain
+    (StateOptions.h:141-146, VioManagerOptions.h:306-353, State.h:91-116):
+    the filter starts from the calibrated Dw/Da/Tg and sensor-frame
+    rotations rather than identity.  `imu_calib`: utils.config.ImuCalib."""
+    kw = dict(dtype=st.cov.dtype, device=st.cov.device)
+    return st.replace(
+        imu_dw=torch.tensor(imu_calib.dw, **kw),
+        imu_da=torch.tensor(imu_calib.da, **kw),
+        imu_tg=torch.tensor(imu_calib.tg, **kw),
+        imu_q_gyro=torch.tensor(imu_calib.q_gyro, **kw),
+        imu_q_acc=torch.tensor(imu_calib.q_acc, **kw),
+    )

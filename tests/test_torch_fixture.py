@@ -107,7 +107,9 @@ and `background.catch_up` over the next camera times,
 ``--write-autoinit-ref``, a few minutes); `oppoint_single_sim20_seed0_ref
 .npz` and `sequential_single_sim20_seed0_ref.npz` (the operating point with
 ANCHORED_INVERSE_DEPTH_SINGLE landmarks, joint and sequential, on the
-fixture's frames, ``--write-single-ref``); and `aruco_sim5_seed3_ref.npz`
+fixture's frames, with the per-frame pose covariances `ref_covs6` from
+which `chip_smoke.py` recomputes JAX's RMSE and NEES over a prefix,
+``--write-single-ref``); and `aruco_sim5_seed3_ref.npz`
 (tests/test_aruco_sigma.py's stream with aruco landmarks, staged by the
 port on the CPU, ``--write-aruco-ref``).  `test_init_refs_match_fresh_run`
 (slow) re-derives them.
@@ -397,6 +399,7 @@ def write_oppoint_reference(path=OPPOINT_REF, frames_path=FIXTURE,
         ref_n_slam=np.asarray(diag.n_slam),
         ref_n_slam_used=np.asarray(diag.n_slam_used),
         ref_rmse=np.float64(rmse), ref_nees=np.float64(nees),
+        ref_covs6=covs6,
         ref_finite=np.bool_(np.isfinite(np.asarray(state.cov)).all()),
         **extra, meta=np.asarray(json.dumps(meta)))
     print(json.dumps({

@@ -53,7 +53,13 @@ def test_port_imports_no_jax():
                    "frontend/tracker.py", "frontend/descriptor.py",
                    "sim/render.py", "init/static_init.py",
                    "init/dynamic_init.py", "init/router.py",
-                   "init/background.py"):
+                   "init/background.py", "parallel/mesh.py",
+                   "parallel/sharded_ekf.py", "parallel/distributed_ba.py",
+                   "parallel/window_refine.py", "parallel/dryrun.py",
+                   "utils/config.py", "utils/checkpoint.py",
+                   "utils/timing.py", "utils/profiling.py",
+                   "utils/native.py", "eval/traj_io.py",
+                   "frontend/aruco.py", "frontend/visualization.py"):
         assert f"open_vins_tpu_torch/{module}" in names, module
 
 
@@ -129,6 +135,57 @@ def test_front_end_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         runner.run_filter_rendered(cfg, tri.TriangulationOptions(), sim,
                                    params, run, kp)
+
+
+def test_parallel_and_utils_entry_points_default_to_cuda(tmp_path):
+    """The parallel layer's and the utilities' entry points that take
+    tensors: device=None means CUDA; without a card they raise, before any
+    rank is spawned."""
+    if torch.cuda.is_available():
+        return
+    from open_vins_tpu_torch.models import manager
+    from open_vins_tpu_torch.parallel import (distributed_ba, dryrun,
+                                              sharded_ekf, window_refine)
+    from open_vins_tpu_torch.utils import checkpoint, timing
+
+    cfg = FilterConfig(max_clones=3, max_slam=0)
+    state = init_state(cfg, "cpu")
+    table = ft.init_table(cfg, 8, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.run(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.build_problem()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sharded_ekf.shard_state(state)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed_ba.make_ba_problem()
+    prob, _ = distributed_ba.make_ba_problem(L=4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed_ba.shard_problem(prob)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        window_refine.refine_window(state, cfg, table,
+                                    tri.TriangulationOptions(),
+                                    manager.gather_feature_obs,
+                                    max_landmarks=4)
+    checkpoint.save(str(tmp_path / "c.npz"), state, table)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        checkpoint.load(str(tmp_path / "c.npz"), state, table)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        timing.FrameTimer()
+
+
+def test_dryrun_entry_refuses_without_gpu():
+    """`python -m open_vins_tpu_torch.parallel.dryrun` without --device
+    means the card: without one it fails and prints no "OK"."""
+    if torch.cuda.is_available():
+        return
+    out = subprocess.run(
+        [sys.executable, "-m", "open_vins_tpu_torch.parallel.dryrun", "2"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "OK" not in out.stdout
 
 
 def _run_smoke(cwd, env):
