@@ -7,7 +7,7 @@ disparity over two half-windows decides the route — a still platform
 one runs the dynamic initializer.  `average_disparity`, `decide` and the
 host half of `build_dyn_input` are numpy; the attempts run on the device
 of the tensors they are given, and each reads its success flag on the host
-once, inside the `INIT_SUCCESS_READ` profiler range.
+once, inside the `INIT_SUCCESS_READ` span.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import torch
 
 from open_vins_tpu_torch import resolve_device
 from open_vins_tpu_torch.init import dynamic_init, static_init
+from open_vins_tpu_torch.utils.profiling import annotate
 
-# profiler range around an attempt's one host read of its success flag
+# span (`utils.profiling.annotate`) around an attempt's one host read of
+# its success flag
 INIT_SUCCESS_READ = "init.success_read"
 
 
@@ -57,7 +59,7 @@ def decide(opts: RouterOptions, disparity_w1, disparity_w2):
 
 
 def _succeeded(res) -> bool:
-    with torch.profiler.record_function(INIT_SUCCESS_READ):
+    with annotate(INIT_SUCCESS_READ):
         return bool(res.success)
 
 

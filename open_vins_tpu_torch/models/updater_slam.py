@@ -52,12 +52,14 @@ from open_vins_tpu_torch.models import triangulation as tri
 from open_vins_tpu_torch.models import update_helper as uh
 from open_vins_tpu_torch.models.feature_table import FeatureTable
 from open_vins_tpu_torch.ops import smallmat
+from open_vins_tpu_torch.utils.profiling import annotate
 
 MAX_FAIL = 2  # eviction on χ²-failure count (VioManager.cpp:476)
 MAX_INIT_PER_FRAME = 6  # landmarks initialized per frame (static bound)
 _INIT_VAR_CAP = 1e4  # max inserted landmark variance (units² of the rep):
 # the delayed-init observability cap on σ²·Σ R1⁻¹² (see _delayed_init_work)
-# profiler range around delayed_init's one host read of a device flag
+# span (`utils.profiling.annotate`) around delayed_init's one host read of
+# a device flag
 INIT_FLAG_READ = "delayed_init.flag_read"
 
 
@@ -286,7 +288,7 @@ def delayed_init(state: VioState, cfg: FilterConfig, table: FeatureTable,
                 select(any_work, work[1], table),
                 *(torch.where(any_work, w, z)
                   for w, z in zip(work[2:], nothing[2:])))
-    with torch.profiler.record_function(INIT_FLAG_READ):
+    with annotate(INIT_FLAG_READ):
         any_work = bool(any_work)
     if not any_work:
         return nothing
@@ -376,7 +378,7 @@ def _delayed_init_sequential(state: VioState, cfg: FilterConfig,
         state = select(any_work, st_run, state)
         n_init = torch.where(any_work, n_run, n_init)
     else:
-        with torch.profiler.record_function(INIT_FLAG_READ):
+        with annotate(INIT_FLAG_READ):
             any_work = bool(any_work)
         if any_work:
             state, n_init = run_inits(state)

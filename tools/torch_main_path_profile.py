@@ -112,6 +112,12 @@ FLAG_READS = {"init": updater_slam.INIT_FLAG_READ,
               "init_success": router.INIT_SUCCESS_READ}
 
 
+def _is_span(name):
+    """The GPU timeline's mirror of a port span (`utils.profiling.annotate`:
+    the flag reads and the step's `ovt.step.*` stages), not a kernel."""
+    return name in FLAG_READS.values() or name.startswith("ovt.")
+
+
 def _union_us(intervals):
     """Total length of the union of [start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -175,7 +181,7 @@ def profile_init(config):
         wall_s = time.perf_counter() - t0
     gpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name not in FLAG_READS.values()]
+           and not _is_span(e.name)]
     busy_us = _union_us([(e.time_range.start, e.time_range.end)
                          for e in gpu])
     reads = [e.time_range.elapsed_us() for e in prof.events()
@@ -333,7 +339,7 @@ def main():
     # GPU timeline
     gpu = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.name not in FLAG_READS.values()]
+           and not _is_span(e.name)]
     spans = [(e.time_range.start, e.time_range.end) for e in gpu]
     busy_us = _union_us(spans)
     by_name = collections.defaultdict(lambda: [0, 0.0])
