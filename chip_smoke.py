@@ -230,6 +230,13 @@ BATCHED_EDGE_SHAPES = [(1, 270, 231), (3, 33, 20), (3, 33, 0), (8, 270, 0),
                        (32, 100, 7)]
 ENSEMBLE_SHAPE = (8, 270, 231)
 LARGEMAP_SHAPE = (1434, 1395)  # the large map's D and support width
+# imu_rk4_window (streams, padded samples): timed at the Monte-Carlo cell's
+# batch, checked at the others; windows of 11 samples (200 Hz IMU, 20 Hz
+# camera)
+RK4_WINDOW_TIMED = (4096, 0)
+RK4_WINDOW_CASES = [(1, 0), (1, 3), (7, 0), (7, 3), (4096, 0), (4096, 3)]
+RK4_WINDOW_K = 11
+RK4_WINDOW_TOL = 1e-5  # q, p, v absolute; Φ, Qd relative to the largest
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
 # blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32)
 QR_SHAPES = [("oracle", 3, 256, 128), ("oracle", 3, 512, 128),
@@ -652,6 +659,99 @@ def _qr_input(label, g_or_m, B, n, gen):
     return A.reshape(g, B, n).contiguous()
 
 
+def rk4_window_bound_ms(B, K):
+    """Operands read once, outputs written once (4 B a float: x 26, mats 45,
+    t, w, a 7·K; q|p|v, Φ and Qd 460); the dense 15 × 15 products as the
+    kernel does them: K − 2 merges of three (2·15³ operations each) and
+    K − 1 leaves' Qd = G diag(qc) Gᵀ (3·15²·12)."""
+    return _bound(4 * B * (26 + 45 + 7 * K + 460),
+                  B * ((K - 2) * 3 * 2 * 15 ** 3 + (K - 1) * 3 * 15 ** 2 * 12))
+
+
+def _rk4_window_operands(B, pad, gen):
+    """(x, mats, t, w, a) of B random windows of RK4_WINDOW_K samples at
+    200 Hz padded by `pad` repeats of the last, on the card: FEJ point off
+    the estimate, non-identity intrinsics."""
+    import torch
+
+    from open_vins_tpu_torch.ops import lie
+
+    def rnd(*shape, s=1.0):
+        return s * torch.randn(*shape, device="cuda", generator=gen)
+
+    K = RK4_WINDOW_K
+    t = 3.0 + 0.005 * torch.arange(K, device="cuda")
+    t = torch.cat([t, t[-1:].expand(pad)]).expand(B, K + pad)
+    w, a = rnd(B, K, 3, s=0.5), rnd(B, K, 3)
+    a[..., 2] += 9.81
+    w = torch.cat([w, w[:, -1:].expand(B, pad, 3)], 1)
+    a = torch.cat([a, a[:, -1:].expand(B, pad, 3)], 1)
+    q = lie.quat_norm(rnd(B, 4))
+    q_fej = lie.quat_norm(q + rnd(B, 4, s=1e-3))
+    p, v = rnd(B, 3, s=3.0), rnd(B, 3)
+    x = torch.cat([q, p, v, q_fej, p + 1e-3, v - 1e-3, rnd(B, 3, s=1e-3),
+                   rnd(B, 3, s=1e-2)], 1)
+    eye = torch.eye(3, device="cuda")
+    mats = torch.stack([torch.tril(eye + rnd(B, 3, 3, s=1e-2)),
+                        torch.tril(eye + rnd(B, 3, 3, s=1e-2)),
+                        rnd(B, 3, 3, s=1e-3),
+                        lie.exp_so3(rnd(B, 3, s=1e-2)),
+                        lie.exp_so3(rnd(B, 3, s=1e-2))], 1)
+    return [z.contiguous() for z in (x, mats, t, w, a)]
+
+
+def phase_imu_rk4_window():
+    """imu_rk4_window under torch.func.vmap (the ensemble's step) against
+    its plain version, one launch per batch; timed at the Monte-Carlo
+    cell's 4,096 windows (`device_ms`, `call_ms`, and the plain version's
+    vmapped loop per call)."""
+    import torch
+
+    from open_vins_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    consts = (9.81, 1.6968e-4, 2.0e-3, 1.9393e-5, 3.0e-3)
+    fused = torch.func.vmap(lambda *o: kernels.imu_rk4_window(*o, *consts))
+    plain = torch.func.vmap(
+        lambda *o: kernels.imu_rk4_window_ref(*o, *consts))
+    rows = {}
+    for B, pad in RK4_WINDOW_CASES:
+        ops = _rk4_window_operands(B, pad, gen)
+        before = kernels.imu_rk4_window.launches
+        got = fused(*ops)
+        torch.cuda.synchronize()
+        want = plain(*ops)
+        row = {"phase": "kernel", "name": "imu_rk4_window", "B": B,
+               "K": RK4_WINDOW_K + pad,
+               "launches": kernels.imu_rk4_window.launches - before,
+               "mean_err": float((got[0] - want[0]).abs().max()),
+               "phi_rel_err": float(((got[1] - want[1]).abs().amax((1, 2))
+                                     / want[1].abs().amax((1, 2))).max()),
+               "qd_rel_err": float(((got[2] - want[2]).abs().amax((1, 2))
+                                    / want[2].abs().amax((1, 2))).max())}
+        row["max_abs_err"] = max(row["mean_err"], row["phi_rel_err"],
+                                 row["qd_rel_err"])
+        if (B, pad) == RK4_WINDOW_TIMED:
+            row["bound_ms"], row["bound_by"] = rk4_window_bound_ms(
+                B, RK4_WINDOW_K + pad)
+            row["device_ms"] = device_ms({"kernel": lambda: fused(*ops)})[
+                "kernel"]
+            row["call_ms"] = call_ms(lambda: fused(*ops), n_runs=200,
+                                     n_warm=3)
+            row["plain_ms"] = call_ms(lambda: plain(*ops), n_runs=10,
+                                      n_warm=1)
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            rows[(B, pad)] = row
+        emit(row)
+        if row["launches"] != 1 or row["max_abs_err"] > RK4_WINDOW_TOL:
+            raise AssertionError(f"imu_rk4_window at B = {B}, pad {pad}: "
+                                 f"{row}")
+    emit({"phase": "kernel_imu_rk4_window",
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def phase_qr():
     """householder_qr_blocks against its plain version at every shape:
     RᵀR = AᵀA per block (tests/test_pallas_kernels.py's atol = rtol =
@@ -833,6 +933,7 @@ def _drive(name, cfg, run, calib, ref, max_tracks):
     n_frames = run.frames.t_new.shape[0]
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
+    kernels.imu_rk4_window.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_filter(cfg, tri.TriangulationOptions(), calib,
                                     run, max_tracks=max_tracks,
@@ -841,7 +942,8 @@ def _drive(name, cfg, run, calib, ref, max_tracks):
     seconds = time.perf_counter() - t0
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
-                    kernels.householder_qr_blocks.launches}
+                    kernels.householder_qr_blocks.launches,
+                "imu_rk4_window": kernels.imu_rk4_window.launches}
 
     qs, ps, _, covs6, diag = outs
     rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
@@ -1297,6 +1399,7 @@ def phase_ensemble8(ref):
     B, n_frames = len(seeds), runs.frames.t_new.shape[1]
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
+    kernels.imu_rk4_window.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_ensemble(cfg, opts, calibs, runs,
                                       max_tracks=max_tracks, device="cuda")
@@ -1304,7 +1407,8 @@ def phase_ensemble8(ref):
     seconds = time.perf_counter() - t0
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
-                    kernels.householder_qr_blocks.launches}
+                    kernels.householder_qr_blocks.launches,
+                "imu_rk4_window": kernels.imu_rk4_window.launches}
     m = runner.ensemble_metrics(outs, runs)
     diag = outs[4]
     jax_rmse, jax_nees = np.asarray(ref["ref_rmse"]), np.asarray(
@@ -1364,6 +1468,7 @@ def phase_newton_zupt_ensemble(ref, calibs, runs):
     part = _prefix(runs, n, streams=True)
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
+    kernels.imu_rk4_window.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_ensemble(cfg, opts, calibs, part,
                                       max_tracks=meta["max_tracks"],
@@ -1656,6 +1761,7 @@ def phase_main_path_rendered(sim, params, run, ref, smi):
     n_frames = run.frames.t_new.shape[0]
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
+    kernels.imu_rk4_window.launches = 0
     t0 = time.perf_counter()
     (state, _, _), outs = runner.run_filter_rendered(
         cfg, opts, sim, params, run, kp, max_tracks=meta["max_tracks"],
@@ -1664,7 +1770,8 @@ def phase_main_path_rendered(sim, params, run, ref, smi):
     seconds = time.perf_counter() - t0
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
-                    kernels.householder_qr_blocks.launches}
+                    kernels.householder_qr_blocks.launches,
+                "imu_rk4_window": kernels.imu_rk4_window.launches}
     qs, ps, _, covs6, diag, tracked = outs
     rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
     spread = abs(ref["ref_rmse"] - ref["ref_seed1_rmse"])
@@ -2686,8 +2793,9 @@ def main():
     dd_rows = phase_downdate()
     bd_rows = phase_downdate_batched()
     qr_rows = phase_qr()
+    rk_rows = phase_imu_rk4_window()
     run, calib, ref = convert.load_staged_run(FIXTURE, device="cuda")
-    phase_msckf_path(run, calib, ref)
+    ms_row = phase_msckf_path(run, calib, ref)
     tsqr_launches, operands = phase_tsqr(run, calib, convert.load_reference(
         OPPOINT_REF))
     kf_rows = phase_downdate_forms(operands)
@@ -2769,6 +2877,15 @@ def main():
         "replaces": "open_vins_tpu/ops/pallas_kernels.py:115",
         "launches": tsqr_launches,
         **_kernel_numbers(qr),
+    }, {
+        "name": "imu_rk4_window", "route": "cuda",
+        "source": "open_vins_tpu_torch/ops/csrc/imu_rk4_window.cu",
+        "replaces": None,
+        "launches_msckf": ms_row["launches"]["imu_rk4_window"],
+        "launches_ensemble8": en_row["launches"]["imu_rk4_window"],
+        **{k: rk_rows[RK4_WINDOW_TIMED][k]
+           for k in ("B", "K", "max_abs_err", "device_ms", "call_ms",
+                     "plain_ms", "bound_ms", "bound_by", "bound_share")},
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

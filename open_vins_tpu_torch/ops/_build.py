@@ -38,6 +38,12 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     ),
+    "imu_rk4_window": (
+        "imu_rk4_window_f32",
+        [ctypes.c_void_p, ctypes.c_longlong] * 5
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
+        + [ctypes.c_void_p],
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -5,8 +5,8 @@ A CPU tensor goes to the plain version (it is the kernel's oracle and what
 the CPU tests run).  A CUDA tensor launches the kernel on the current stream
 or raises: there is no fallback.  Each wrapper counts its launches in a
 plain integer attribute (`symmetric_downdate.launches`,
-`householder_qr_blocks.launches`), one per launch whether the call was
-batched or not.
+`householder_qr_blocks.launches`, `imu_rk4_window.launches`), one per launch
+whether the call was batched or not.
 
 Each kernel is a `torch.library.custom_op` with a vmap rule, so a wrapper
 runs under `torch.func.vmap` (the filter ensemble vmaps the frame step over
@@ -14,6 +14,9 @@ its streams, as the JAX package's `jax.vmap` does) and a batched call is one
 launch over the whole batch: the counterpart of the `custom_vmap` rule of
 open_vins_tpu/ops/pallas_kernels.py:72-88, except that on Hopper the batch
 axis of the grid costs nothing, so the batched call runs the kernel too.
+`imu_rk4_window` sends CPU tensors to its plain version before the custom
+op, so that under vmap on the CPU its plain operations are batched as they
+were before it had a kernel.
 """
 
 from __future__ import annotations
@@ -243,3 +246,143 @@ def householder_qr_blocks(A_blocks):
 
 
 householder_qr_blocks.launches = 0
+
+
+# imu_rk4_window's packed per-stream inputs: x holds q, p, v, q_fej, p_fej,
+# v_fej, bg, ba; mats holds Dw, Da, Tg, R_w, R_a
+_RK4_X = 26
+_RK4_MEAN = 10  # q | p | v
+
+
+def imu_rk4_window_ref(x, mats, t, w, a, gravity_mag, sigma_w, sigma_a,
+                       sigma_wb, sigma_ab):
+    """rk4 over one IMU window, plain PyTorch: `models/propagator`'s Python
+    loop of `_step_mean_rk4`, `_phi_qd`, `_mask_padded` and
+    `_compose_transitions`, as `propagate` runs them for the other
+    integrators.  Returns (q|p|v [10], Φ [15, 15], symmetrized Qd
+    [15, 15])."""
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import propagator as P  # models use ops
+
+    q, p, v, q_fej, p_fej, v_fej, bg, ba = torch.split(
+        x, (4, 3, 3, 4, 3, 3, 3, 3))
+    gravity = torch.tensor([0.0, 0.0, gravity_mag], dtype=x.dtype,
+                           device=x.device)
+    cfg = FilterConfig(sigma_w=sigma_w, sigma_a=sigma_a, sigma_wb=sigma_wb,
+                       sigma_ab=sigma_ab)
+    (q, p, v), dts, trans = P._loop_window(
+        P._step_mean_rk4, (q, p, v), (q_fej, p_fej, v_fej), (bg, ba),
+        tuple(mats.unbind(0)), P.ImuWindow(t=t, w=w, a=a), gravity, cfg)
+    Phi, _, Qd = P._window_transition(*trans, dts)
+    return torch.cat([q, p, v]), Phi, Qd
+
+
+def _check_rk4_args(x, mats, t, w, a):
+    """Types, ranks, shapes and device of one stream's operands."""
+    named = (("x", x), ("mats", mats), ("t", t), ("w", w), ("a", a))
+    for name, arg in named:
+        if arg.dtype != torch.float32:
+            raise TypeError(f"imu_rk4_window: {name} must be float32, "
+                            f"got {arg.dtype}")
+    K = t.shape[0] if t.dim() == 1 else -1
+    if (x.shape != (_RK4_X,) or mats.shape != (5, 3, 3) or K < 2
+            or w.shape != (K, 3) or a.shape != (K, 3)):
+        raise ValueError(
+            "imu_rk4_window: need x [26], mats [5, 3, 3], t [K], w and a "
+            f"[K, 3] with K >= 2; got {tuple(x.shape)}, {tuple(mats.shape)}, "
+            f"{tuple(t.shape)}, {tuple(w.shape)}, {tuple(a.shape)}")
+    if len({arg.device for _, arg in named}) != 1:
+        raise ValueError("imu_rk4_window: x, mats, t, w and a must lie on "
+                         "one device, got "
+                         + ", ".join(str(arg.device) for _, arg in named))
+
+
+def _per_stream(arg, dim):
+    """(tensor, batch stride in floats): the batch dimension `dim` in front
+    with each stream's entries contiguous; an unbatched operand (dim None)
+    is read by every stream (stride 0)."""
+    if dim is None:
+        return arg.contiguous(), 0
+    arg = arg.movedim(dim, 0)
+    if not arg[0].is_contiguous():
+        arg = arg.contiguous()
+    return arg, arg.stride(0)
+
+
+def _launch_rk4(batch, operands, gravity_mag, sigmas):
+    """One launch of `csrc/imu_rk4_window.cu` over `batch` streams;
+    `operands` are (tensor, batch stride) of x, mats, t, w and a."""
+    (x, _), _, (t, _), _, _ = operands
+    _require_cuda("imu_rk4_window", x)
+    K = t.shape[-1]
+    mean = x.new_empty((batch, _RK4_MEAN))
+    phi = x.new_empty((batch, 15, 15))
+    qd = x.new_empty((batch, 15, 15))
+    args = [v for arg, stride in operands for v in (arg.data_ptr(), stride)]
+    lib = _build.load("imu_rk4_window")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.imu_rk4_window_f32(
+            *args, mean.data_ptr(), phi.data_ptr(), qd.data_ptr(), batch, K,
+            gravity_mag, *(s * s for s in sigmas), stream)
+    if err != 0:
+        raise RuntimeError(f"imu_rk4_window kernel launch failed: "
+                           f"cudaError {err}")
+    imu_rk4_window.launches += 1
+    return mean, phi, qd
+
+
+@torch.library.custom_op(
+    f"{_NS}::imu_rk4_window", mutates_args=(),
+    schema="(Tensor x, Tensor mats, Tensor t, Tensor w, Tensor a, "
+           "float gravity_mag, float sigma_w, float sigma_a, float sigma_wb, "
+           "float sigma_ab) -> (Tensor, Tensor, Tensor)")
+def _rk4_op(x, mats, t, w, a, gravity_mag, sigma_w, sigma_a, sigma_wb,
+            sigma_ab):
+    operands = [_per_stream(arg, None) for arg in (x, mats, t, w, a)]
+    mean, phi, qd = _launch_rk4(1, operands, gravity_mag,
+                                (sigma_w, sigma_a, sigma_wb, sigma_ab))
+    return mean[0], phi[0], qd[0]
+
+
+@_rk4_op.register_fake
+def _(x, mats, t, w, a, gravity_mag, sigma_w, sigma_a, sigma_wb, sigma_ab):
+    return (x.new_empty((_RK4_MEAN,)), x.new_empty((15, 15)),
+            x.new_empty((15, 15)))
+
+
+@_rk4_op.register_vmap
+def _(info, in_dims, x, mats, t, w, a, *consts):
+    """A batch of windows in one launch, each operand read in place at its
+    batch stride (0 for an unbatched one)."""
+    tensors = (x, mats, t, w, a)
+    operands = [_per_stream(arg, dim) for arg, dim in zip(tensors, in_dims)]
+    return (_launch_rk4(info.batch_size, operands, consts[0], consts[1:]),
+            (0, 0, 0))
+
+
+def imu_rk4_window(x, mats, t, w, a, gravity_mag, sigma_w, sigma_a, sigma_wb,
+                   sigma_ab):
+    """rk4 over one IMU window of K samples (K - 1 intervals), with no
+    online IMU-intrinsic calibration: the samples corrected by the biases and
+    the matrices (`propagator.correct_imu`), the K - 1 rk4 mean steps, each
+    interval's Φ and Qd (the first at the FEJ point, then at the mean; a
+    dt = 0 interval an exact no-op) and their pairwise tree composition.
+
+    x [26] packs q, p, v, q_fej, p_fej, v_fej, bg, ba; mats [5, 3, 3] is
+    (Dw, Da, Tg, R_w, R_a); t [K], w and a [K, 3]; all float32 on one
+    device.  Returns (q|p|v [10], Φ [15, 15], symmetrized Qd [15, 15]).
+
+    On CUDA it runs `csrc/imu_rk4_window.cu`, one warp per window; the JAX
+    package has no Pallas kernel here (XLA fuses its loop).  Under
+    `torch.func.vmap` the batch is one launch.
+    """
+    _check_rk4_args(x, mats, t, w, a)
+    if x.device.type == "cpu":  # under vmap too: vmap runs the plain ops
+        return imu_rk4_window_ref(x, mats, t, w, a, gravity_mag, sigma_w,
+                                  sigma_a, sigma_wb, sigma_ab)
+    return _rk4_op(x, mats, t, w, a, float(gravity_mag), float(sigma_w),
+                   float(sigma_a), float(sigma_wb), float(sigma_ab))
+
+
+imu_rk4_window.launches = 0

@@ -14,7 +14,8 @@ import torch
 from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.ops import kernels
 from open_vins_tpu_torch.sim import simulator
-from torch_port_helpers import (check_r_factors, downdate_inputs, np_of,
+from torch_port_helpers import (check_r_factors, downdate_inputs,
+                                imu_window_inputs, np_of,
                                 oracle_blocks, stack_blocks)
 
 # symmetric_downdate: the oracle shapes of tests/test_pallas_kernels.py, the
@@ -330,3 +331,98 @@ def test_cuda_front_end_matches_cpu():
         assert (mask == mask0).all() and (ids == ids0).all(), k
         assert abs(uv[mask] - uv0[mask]).max() <= 1e-3, k
         assert mask.sum() > 30, k
+
+
+# imu_rk4_window: (streams, padded samples) of the fixture's 11-sample
+# windows with seeded non-identity intrinsics and a FEJ point off the
+# estimate; q, p, v to 1e-5 absolute, Φ and Qd to 1e-5 of their largest entry
+RK4_SIGMAS = (1.6968e-4, 2.0e-3, 1.9393e-5, 3.0e-3)
+RK4_CASES = [(1, 0), (1, 3), (7, 0), (7, 3), (4096, 0), (4096, 3)]
+
+
+def _rk4_batched(fn, in_dims=0):
+    return torch.func.vmap(lambda *o: fn(*o, 9.81, *RK4_SIGMAS),
+                           in_dims=in_dims)
+
+
+def _check_rk4(got, want):
+    got = [g.cpu() for g in got]
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    for g, w in zip(got[1:], want[1:]):
+        err = (g - w).abs().amax(dim=(-2, -1))
+        assert (err <= 1e-5 * w.abs().amax(dim=(-2, -1))).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,pad", RK4_CASES)
+def test_cuda_rk4_window_matches_plain_version(B, pad):
+    """The kernel against the plain version (on the CPU), one launch per
+    batched call; at B = 1 the unbatched call too."""
+    _need_gpu()
+    ops = [torch.from_numpy(z) for z in imu_window_inputs(B, pad, seed=B)]
+    want = _rk4_batched(kernels.imu_rk4_window_ref)(*ops)
+    before = kernels.imu_rk4_window.launches
+    got = _rk4_batched(kernels.imu_rk4_window)(*(o.cuda() for o in ops))
+    torch.cuda.synchronize()
+    assert kernels.imu_rk4_window.launches == before + 1
+    _check_rk4(got, want)
+    if B == 1:
+        one = kernels.imu_rk4_window(*(o[0].cuda() for o in ops), 9.81,
+                                     *RK4_SIGMAS)
+        assert kernels.imu_rk4_window.launches == before + 2
+        _check_rk4([r[None] for r in one], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dims", [(0, 0, None, None, None),
+                                     (1, None, 0, 0, 0)])
+def test_cuda_rk4_window_vmap_rule(in_dims):
+    """An unbatched operand (the window, or the matrices) is read by every
+    stream, a batch dimension that is not the first is moved: one launch."""
+    _need_gpu()
+    full = [torch.from_numpy(z) for z in imu_window_inputs(5, 3, seed=1)]
+    full = [o if d is not None else o[:1].expand_as(o).contiguous()
+            for o, d in zip(full, in_dims)]
+    want = _rk4_batched(kernels.imu_rk4_window_ref)(*full)
+    ops = [o if d == 0 else (o[0] if d is None else o.movedim(0, d))
+           for o, d in zip(full, in_dims)]
+    before = kernels.imu_rk4_window.launches
+    got = _rk4_batched(kernels.imu_rk4_window, in_dims)(
+        *(o.cuda() for o in ops))
+    torch.cuda.synchronize()
+    assert kernels.imu_rk4_window.launches == before + 1
+    _check_rk4(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integration,launches", [("rk4", 1),
+                                                  ("analytical", 0)])
+def test_cuda_propagate_routes_rk4_window(integration, launches):
+    """propagate on the card launches the kernel for rk4 and not for ACI²,
+    and matches the CPU's propagate (the plain version for rk4)."""
+    _need_gpu()
+    from open_vins_tpu_torch.core import state as tstate
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import propagator
+
+    cfg = FilterConfig(max_clones=11, max_slam=0, integration=integration)
+    x, _, t, w, a = (torch.from_numpy(z[0]) for z in imu_window_inputs(1, 3))
+    q, p, v, q_fej, p_fej, v_fej, bg, ba = torch.split(
+        x, (4, 3, 3, 4, 3, 3, 3, 3))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        st = tstate.init_state(cfg, dev).replace(
+            q=q.to(dev), p=p.to(dev), v=v.to(dev), q_fej=q_fej.to(dev),
+            p_fej=p_fej.to(dev), v_fej=v_fej.to(dev), bg=bg.to(dev),
+            ba=ba.to(dev))
+        before = kernels.imu_rk4_window.launches
+        outs.append(propagator.propagate(
+            st, cfg, propagator.ImuWindow(t=t.to(dev), w=w.to(dev),
+                                          a=a.to(dev)), float(t[-1])))
+    torch.cuda.synchronize()
+    assert kernels.imu_rk4_window.launches == before + launches
+    cpu, card = outs
+    for k in ("q", "p", "v"):
+        assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max() <= 1e-5
+    assert ((card.cov.cpu() - cpu.cov).abs().max()
+            <= 1e-5 * cpu.cov.abs().max())

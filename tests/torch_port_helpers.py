@@ -375,3 +375,46 @@ def jax_pre_update(pb, st, tb, k):
     tb = jman.ft.ingest_frame(tb, jc, st.head, frame.ids, frame.uv,
                               frame.uvn, frame.mask)
     return st, tb
+
+
+def imu_window_inputs(B, pad=0, seed=0, identity=False):
+    """(x [B, 26], mats [B, 5, 3, 3], t [B, K], w and a [B, K, 3]) float32
+    numpy operands of `kernels.imu_rk4_window`: the fixture's 200 Hz windows
+    of 11 samples (frames drawn from `seed`, padded by `pad` repeats of the
+    last sample), groundtruth states with drawn biases and a FEJ point off
+    the estimate, and seeded non-identity intrinsics (lower-triangular Dw
+    and Da near I, a small Tg, small rotations R_w and R_a) unless
+    `identity`."""
+    rng = np.random.default_rng(seed)
+    with np.load(FIXTURE) as z:
+        f = rng.integers(0, z["win_t"].shape[0], size=B)
+        t, w, a = (z[k][f] for k in ("win_t", "win_w", "win_a"))
+        q, p, v = z["gt_q"][f], z["gt_p"][f], z["gt_v"][f]
+    if pad:
+        t, w, a = (np.concatenate([x, np.repeat(x[:, -1:], pad, 1)], 1)
+                   for x in (t, w, a))
+    q_fej = q + 1e-3 * rng.normal(size=q.shape)
+    q_fej /= np.linalg.norm(q_fej, axis=1, keepdims=True)
+    x = np.concatenate([q, p, v, q_fej, p + 1e-3, v - 1e-3,
+                        1e-3 * rng.normal(size=(B, 3)),
+                        1e-2 * rng.normal(size=(B, 3))], 1)
+    mats = np.broadcast_to(np.eye(3), (B, 5, 3, 3)).copy()
+    if not identity:
+        mats[:, :2] = np.tril(mats[:, :2]
+                              + 1e-2 * rng.normal(size=(B, 2, 3, 3)))
+        mats[:, 2] = 1e-3 * rng.normal(size=(B, 3, 3))
+        mats[:, 3] = rodrigues(1e-2 * rng.normal(size=(B, 3)))
+        mats[:, 4] = rodrigues(1e-2 * rng.normal(size=(B, 3)))
+    return tuple(np.ascontiguousarray(x, dtype=np.float32)
+                 for x in (x, mats, t, w, a))
+
+
+def rodrigues(rv):
+    """Rotation matrices [n, 3, 3] of rotation vectors rv [n, 3] (Rodrigues,
+    float64)."""
+    th = np.linalg.norm(rv, axis=1)[:, None, None]
+    k = rv / np.maximum(th[:, :, 0], 1e-12)
+    K = np.zeros((rv.shape[0], 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
