@@ -20,12 +20,23 @@ pose, a FEJ value, the track table) would pass them.  So the reference
 also runs each sampled stream alone, from its own start, over the first
 `check.pass_frames` frames of the pass, and the program's per-frame
 outputs of those frames are judged against it.  A stream's pass is
-compared up to the first frame at which the number of features used
-differs from the reference's: there a gate fell the other way.  Where no
-gate of the reference's step at that frame lay within its float32
-tolerance, the difference counts as a differing decision.  When as many
-of the pass's frames go uncompared as are compared, its gaps read
-infinite.
+compared up to the first frame at which the number of features or
+landmarks used, or the ids in the landmark slots, differ from the
+reference's: there a gate fell the other way (delayed init's and
+eviction's decisions show in the slots).  Where no gate of the reference's
+step at that frame lay within its float32 tolerance, or the landmarks
+differ by more than two for each decision that lay within it (one gate
+that falls the other way changes one landmark's use and, by eviction or
+insertion, its slot), the difference counts as a differing decision.
+When as many of the pass's frames go uncompared as are compared, its gaps
+read infinite.
+
+The reference follows the configurations that
+`reference.manager.check_config` admits: pure MSCKF (`max_slam` 0) and
+OpenVINS's SLAM deployment (landmarks in the state, stored as its EuRoC
+configuration stores them, ANCHORED_MSCKF_INVERSE_DEPTH, or as global
+points; delayed init; the joint "qr" update), both under rk4; the same
+numbers and limits judge both.
 
 Numbers compared, each with its limit in the configuration file (`check`
 key):
@@ -98,7 +109,8 @@ def reference_step(config: dict, state: dict, table: dict, frame):
 def reference_pass(config: dict, streams, b: int, frames: int):
     """Stream b's first `frames` frames stepped by the reference alone from
     its groundtruth start and an empty table, in float64: per frame, the
-    reference's (state, diag) and the smallest gate margin of its step."""
+    reference's (state, diag), the smallest gate margin of its step and
+    the number of its decisions that lay within tolerance."""
     cfg = FilterConfig(**config["filter"])
     ref.check_config(cfg)
     opts = TriangulationOptions(**config.get("triangulation", {}))
@@ -109,7 +121,7 @@ def reference_pass(config: dict, streams, b: int, frames: int):
         margin.reset()
         st, tb, diag = ref.step_frame(st, tb, cfg, opts,
                                       frame_input(streams, b, k))
-        out.append((st, diag, margin.worst()[0]))
+        out.append((st, diag, margin.worst()[0], margin.near_count()))
     return out
 
 
@@ -165,6 +177,18 @@ def step_gaps(out, st, diag):
     counts = bool((n_msckf != diag.n_msckf) | (n_slam_used
                                                  != diag.n_slam_used))
     return float((e.abs() / sig).max()), float(cov_gap), counts
+
+
+def landmark_moves(ids, n_slam_used, st, diag) -> int:
+    """How far the program's landmarks of one frame lie from the
+    reference's: the difference in landmarks used, plus the ids in one
+    side's slots and not the other's (1 where the same ids sit in other
+    slots).  `ids` [L] are the program's slots' ids."""
+    ids = ids.to(st.slam_id.dtype)
+    a = set(ids[ids >= 0].tolist())
+    b = set(st.slam_id[st.slam_id >= 0].tolist())
+    moved = len(a ^ b) or int(not torch.equal(ids, st.slam_id))
+    return abs(int(n_slam_used) - int(diag.n_slam_used)) + moved
 
 
 def start_gap(start: dict, table: dict, ref_state: VioState,

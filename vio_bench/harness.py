@@ -159,6 +159,11 @@ def run_cell(root: Path, name: str, seed: int, seconds: int, traced: bool,
     run = Run(n_streams=B, state_dim=D, update_cols=cols,
               ensemble_start_s=time.perf_counter() - t)
     start = (prog.copy(state), prog.copy(table))
+    # the landmark slots' ids over the passes' frames, which the per-frame
+    # outputs do not show (`compare`); none without landmarks
+    ids = []
+    n_ids = (min(int(traffic["check"]["pass_frames"]), K)
+             if FilterConfig(**config["filter"]).max_slam > 0 else 0)
     # the warm-up's last steps, timed alone, size the draw of the samples
     warm_outs, warm_s = [], []
     k = 0
@@ -166,6 +171,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: int, traced: bool,
         t = time.perf_counter()
         state, table, diag = prog.step(state, table, runs, k)
         warm_outs.append(prog.outputs(state, diag))
+        if len(ids) < n_ids:
+            ids.append(state.slam_id.clone())
         _sync(dev)
         warm_s.append(time.perf_counter() - t)
         k += 1
@@ -202,6 +209,8 @@ def run_cell(root: Path, name: str, seed: int, seconds: int, traced: bool,
         if step in snaps:
             post[step] = prog.snapshot(state, table, idx)
         outs.append(prog.outputs(state, diag))
+        if len(ids) < n_ids:
+            ids.append(state.slam_id.clone())
         frames.append(k)
         k += 1
         step += 1
@@ -257,7 +266,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: int, traced: bool,
         torch.cuda.empty_cache()
 
     numbers = compare(config, traffic, streams, warm_outs + outs, frames,
-                      snaps, post, start_snap, s_idx, log)
+                      snaps, post, start_snap, s_idx, log, ids)
     limits = config["check"]
     correct = all(numbers[k] <= limits[k] for k in limits)
     attempted = B * n_window
@@ -306,9 +315,11 @@ def _p95(values):
 
 
 def compare(config, traffic, streams, all_outs, frames, snaps, post,
-            start_snap, s_idx, log):
+            start_snap, s_idx, log, slam_ids=()):
     """The compared numbers (`vio_bench.check`).  `all_outs`: the
-    per-frame outputs of the warm-up's steps, then of the window's."""
+    per-frame outputs of the warm-up's steps, then of the window's;
+    `slam_ids`: the landmark slots' ids [B, L] of the first steps (empty
+    without landmarks)."""
     finite = torch.stack([
         torch.stack([torch.isfinite(x).reshape(x.shape[0], -1).all(1)
                      for x in o[:4]]).all(0) for o in all_outs])
@@ -332,16 +343,19 @@ def compare(config, traffic, streams, all_outs, frames, snaps, post,
     n_pass = min(int(traffic["check"]["pass_frames"]), streams.n_frames,
                  len(all_outs))
     pass_outs = [sampled(o) for o in all_outs[:n_pass]]
+    pass_ids = sampled(slam_ids[:n_pass])
     p_gaps, p_covs, stops, p_decision = [], [], [], 0
     for j, b in enumerate(s_idx):
         stop = None
-        for f, (r_st, r_diag, near) in enumerate(
+        for f, (r_st, r_diag, near, n_near) in enumerate(
                 check.reference_pass(config, streams, b, n_pass)):
-            g, c, counts = check.step_gaps([x[j] for x in pass_outs[f]],
-                                           r_st, r_diag)
-            if counts:
-                stop = (b, f, round(near, 3))
-                p_decision += near >= 1.0
+            out = [x[j] for x in pass_outs[f]]
+            g, c, counts = check.step_gaps(out, r_st, r_diag)
+            moved = (check.landmark_moves(pass_ids[f][j], out[5], r_st,
+                                          r_diag) if pass_ids else 0)
+            if counts or moved:
+                stop = (b, f, round(near, 3), moved, n_near)
+                p_decision += near >= 1.0 or moved > 2 * n_near
                 break
             p_gaps.append(g)
             p_covs.append(c)
@@ -349,7 +363,8 @@ def compare(config, traffic, streams, all_outs, frames, snaps, post,
             stops.append(stop)
     uncompared = len(s_idx) * n_pass - len(p_gaps)
     log(f"passes: {len(p_gaps)} frames of {len(s_idx)} streams compared, "
-        f"{uncompared} not; stopped at (stream, frame, nearest gate in tolerances) {stops}; in "
+        f"{uncompared} not; stopped at (stream, frame, nearest gate in "
+        f"tolerances, landmarks moved, decisions near) {stops}; in "
         f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
     if len(p_gaps) <= uncompared:
         p_gaps, p_covs = [math.inf], [math.inf]
