@@ -18,8 +18,10 @@ so the exit code is not 0):
    eager main path pays (host dispatch included).  `symmetric_downdate` at
    the reference's oracle shapes, the main paths' (120, 81) and (270, 231)
    and the large map's (1434, 231); `householder_qr_blocks` at the oracle
-   shapes and the row blocks of the MSCKF-only stack (760 × 121) and of the
-   operating point's joint stack (1174 × 271);
+   shapes, the row blocks of the MSCKF-only stack (760 × 121) and of the
+   operating point's joint stack (1174 × 271), and the blocks of the joint
+   "qr" update's exact reduction, one stream's and 4,096 streams' (the
+   library's batched QR not timed at 4,096);
 4. the MSCKF-only closed loop (11 clones, 200 points, <= 40 MSCKF features
    per update, 20 Hz camera / 200 Hz IMU, rk4) over the 399 staged frames
    of `open_vins_tpu_torch/data/msckf_sim20_seed0.npz`, after a 40-frame
@@ -29,8 +31,9 @@ so the exit code is not 0):
    stack is built from the frame's pre-update state by the manager's own
    functions and compressed by `compress_system` (the Householder TSQR,
    through `householder_qr_blocks`), against `compress_system_ranges`
-   (the filter's CholeskyQR2) on the same stack: same information and the
-   same EKF update;
+   (the MSCKF update's CholeskyQR2) on the same stack: same information
+   and the same EKF update (`launches` counts the compression's launches,
+   `step_launches` the steps' joint reductions);
    At frame 30 the same phase records the operands of the K ≠ PHt
    downdates that the push-through forms give on the frame's real joint
    stack — (P_cols, Wᵀ) of woodbury and newton, (P_cols·W, P_cols) of spd,
@@ -238,10 +241,18 @@ RK4_WINDOW_CASES = [(1, 0), (1, 3), (7, 0), (7, 3), (4096, 0), (4096, 3)]
 RK4_WINDOW_K = 11
 RK4_WINDOW_TOL = 1e-5  # q, p, v absolute; Φ, Qd relative to the largest
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
-# blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32)
+# blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32), then
+# the three launches of the joint "qr" update's exact reduction
+# (update_helper.reduce_joint_system at sim_slam's and the operating
+# point's widths) for one stream and for 4,096 streams folded into the
+# block axis, as the benchmark's slam.mc runs them (the library's batched
+# QR is not timed there: it loops over the blocks)
 QR_SHAPES = [("oracle", 3, 256, 128), ("oracle", 3, 512, 128),
              ("oracle", 3, 384, 256), ("msckf_stack", 760, 256, 121),
-             ("oppoint_stack", 1174, 544, 271)]
+             ("oppoint_stack", 1174, 544, 271),
+             ("joint_stream", 2, 448, 82), ("joint_stream", 1, 192, 82),
+             ("joint_stream", 1, 384, 232), ("joint_batch", 8192, 448, 82),
+             ("joint_batch", 4096, 192, 82), ("joint_batch", 4096, 384, 232)]
 # checked only: n < 32 (one ragged panel), B = n, g = 1 at the stack's n,
 # a block taller than the register panel's 640 rows
 QR_EDGE_SHAPES = [("edge", 2, 40, 15), ("edge", 1, 71, 71),
@@ -459,14 +470,16 @@ def device_ms(fns, n_calls=50, n_rounds=6):
 
 
 def _times(row, kernel, library, plain, n_call=200, n_plain=200):
-    """Device and per-call times of a kernel and its library call, the
-    plain version's per-call time and the bound's share of the kernel's
-    device time, into `row` (which holds bound_ms)."""
-    dev = device_ms({"kernel": kernel, "library": library})
+    """Device and per-call times of a kernel and its library call (None:
+    not timed), the plain version's per-call time and the bound's share of
+    the kernel's device time, into `row` (which holds bound_ms)."""
+    dev = device_ms({"kernel": kernel, **({"library": library}
+                                          if library else {})})
     row["device_ms"] = dev["kernel"]
     row["call_ms"] = call_ms(kernel, n_runs=n_call, n_warm=3)
-    row["library_device_ms"] = dev["library"]
-    row["library_call_ms"] = call_ms(library, n_runs=n_call, n_warm=3)
+    row["library_device_ms"] = dev.get("library")
+    row["library_call_ms"] = (call_ms(library, n_runs=n_call, n_warm=3)
+                              if library else None)
     row["plain_ms"] = call_ms(plain, n_runs=n_plain, n_warm=1)
     row["bound_share"] = row["bound_ms"] / row["device_ms"]
 
@@ -640,12 +653,13 @@ def phase_downdate_batched():
 
 def _qr_input(label, g_or_m, B, n, gen):
     """Row blocks [g, B, n]: the oracle's Gaussian blocks with the last 7
-    rows and 5 columns zeroed, or a Gaussian stack of m rows with the joint
-    stack's zero columns (IMU block, IMU-intrinsic tail) padded with zero
-    rows and cut into blocks, as update_helper._tsqr_r does."""
+    rows and 5 columns zeroed (also the joint reduction's blocks), or a
+    Gaussian stack of m rows with the joint stack's zero columns (IMU
+    block, IMU-intrinsic tail) padded with zero rows and cut into blocks,
+    as update_helper._tsqr_r does."""
     import torch
 
-    if label in ("oracle", "edge"):
+    if label in ("oracle", "edge", "joint_stream", "joint_batch"):
         A = torch.randn(g_or_m, B, n, device="cuda", generator=gen)
         A[:, -7:, :] = 0.0
         A[:, :, -5:] = 0.0
@@ -789,6 +803,7 @@ def phase_qr():
         if label != "edge":
             row["bound_ms"], row["bound_by"] = qr_bound_ms(g, B, n)
             _times(row, lambda: kernels.householder_qr_blocks(A),
+                   None if label == "joint_batch" else
                    lambda: torch.linalg.qr(A, mode="r"),
                    lambda: kernels.householder_qr_blocks_ref(A),
                    n_call=20, n_plain=5)
@@ -1082,7 +1097,7 @@ def phase_tsqr(run, calib, ref):
         frame = runner.frame_at(run.frames, k)
         if k in TSQR_FRAMES:
             st, tb, reserved = manager.pre_update(state, table, cfg, frame)
-            st, _, H, res, _, _ = manager.build_joint_system(
+            st, _, H, res, _, _, _ = manager.build_joint_system(
                 st, cfg, tb, opts, reserved)
             row = _tsqr_check(st, cfg, H, res)
             row.update(frame=k, n_slam=int(st.slam_valid.sum()))
@@ -1092,9 +1107,13 @@ def phase_tsqr(run, calib, ref):
                 operands = _form_operands(st, cfg, H, res, state, frame)
         state, table, _ = manager.step_frame(state, table, cfg, opts, frame)
     torch.cuda.synchronize()
-    launches = kernels.householder_qr_blocks.launches
+    # the compression's own launches; the steps' joint reductions launch
+    # the kernel too
+    launches = sum(row["qr_launches"] for row in checks)
     emit({"phase": "tsqr", "seconds": time.perf_counter() - t0,
-          "frames": TSQR_FRAMES, "launches": launches})
+          "frames": TSQR_FRAMES, "launches": launches,
+          "step_launches": kernels.householder_qr_blocks.launches
+          - launches})
     for row in checks:
         ok = (row["finite"] and row["qr_launches"] == 1
               and row["rows"] >= 4 * row["cols"] and row["n_slam"] > 0
@@ -2406,11 +2425,11 @@ def _timed_step(timer, state, table, cfg, opts, frame):
     timer.start_frame()
     state, table, reserved = manager.pre_update(state, table, cfg, frame)
     timer.stage("propagation")
-    state, table, H, res, diag, n_used = manager.build_joint_system(
+    state, table, H, res, diag, n_used, cam_rows = manager.build_joint_system(
         state, cfg, table, opts, reserved)
     timer.stage("msckf")
     state, table, diag = manager.joint_update(state, cfg, table, H, res, diag,
-                                              n_used)
+                                              n_used, cam_rows)
     timer.stage("slam")
     timer.end_frame(float(frame.t_new))
     return state, table

@@ -63,13 +63,15 @@ from open_vins_tpu_torch.utils.profiling import annotate
 ZUPT_FLAG_READ = "zupt.flag_read"
 # the step's spans (`utils.profiling.annotate`): the leaf spans that cover
 # the MSCKF-only step (`ovt.step.table` opens more than once a step), then
-# the top-level spans of the other paths, whose MSCKF rows fall under the
-# leaf spans through `msckf_build`
+# the spans of the other paths, whose MSCKF rows fall under the leaf spans
+# through `msckf_build`; `ovt.step.joint_reduce` nests inside
+# `ovt.step.joint_update`
 LEAF_SPANS = ("ovt.step.marginalize", "ovt.step.propagate", "ovt.step.table",
               "ovt.step.triangulate", "ovt.step.linearize",
               "ovt.step.compress", "ovt.step.ekf_update")
 PATH_SPANS = ("ovt.step.zupt", "ovt.step.slam_update",
-              "ovt.step.delayed_init", "ovt.step.joint_update")
+              "ovt.step.delayed_init", "ovt.step.joint_update",
+              "ovt.step.joint_reduce")
 
 
 @dataclasses.dataclass
@@ -92,6 +94,7 @@ class StepDiag(TensorRecord):
     n_slam: torch.Tensor  # active SLAM landmarks
     n_slam_used: torch.Tensor  # landmarks updated this frame
     newton_resid: torch.Tensor  # 0 outside the newton joint form
+    n_joint_rows: torch.Tensor  # live rows of the joint "qr" stack, else 0
 
 
 def gather_feature_obs(state: VioState, cfg: FilterConfig,
@@ -233,6 +236,7 @@ def msckf_build(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
             n_slam=zero_i,
             n_slam_used=zero_i,
             newton_resid=torch.zeros((), dtype=H_c.dtype, device=rows.device),
+            n_joint_rows=zero_i,
         )
     return H_c, res_c, ranges, table, diag
 
@@ -310,7 +314,10 @@ def build_joint_system(state: VioState, cfg: FilterConfig,
     pre-update state, whitened to unit noise and stacked.  Delayed init
     inserts its landmarks into the state here (`batched`: see
     `updater_slam.delayed_init`).
-    Returns (state, table, H [m, D], res [m], diag, n_used)."""
+    Returns (state, table, H [m, D], res [m], diag, n_used, cam_rows),
+    cam_rows the (start, stop) row ranges that lie on the camera support:
+    the MSCKF rows (first) and delayed init's leftover rows (last), the
+    landmarks' rows between."""
     H1, r1, _, table, diag = msckf_build(state, cfg, table, tri_opts,
                                          reserved, compress=False)
     with annotate("ovt.step.slam_update"):
@@ -323,16 +330,21 @@ def build_joint_system(state: VioState, cfg: FilterConfig,
         s1, s2 = cfg.sigma_pix, cfg.sigma_pix_slam
         H = torch.cat([H1 / s1, H2 / s2, H3 / s2])
         res = torch.cat([r1 / s1, r2 / s2, r3 / s2])
-    return state, table, H, res, diag, n_used
+    m = H.shape[0]
+    cam_rows = ((0, H1.shape[0]), (m - H3.shape[0], m))
+    return state, table, H, res, diag, n_used, cam_rows
 
 
 def joint_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
-                 H, res, diag: StepDiag, n_used):
+                 H, res, diag: StepDiag, n_used, cam_rows):
     """Apply the whitened joint stack as one EKF update on the SLAM column
     support in cfg.joint_update_form (manager.py:355-380 of the
     reference), evict dead landmarks:
 
-      * "qr": compressed by CholeskyQR2, then the one-sweep update;
+      * "qr": reduced exactly to the support's rows
+        (`update_helper.reduce_joint_system`, Householder only, under the
+        `ovt.step.joint_reduce` span; the stack's live rows in
+        `diag.n_joint_rows`), then the one-sweep update;
       * "woodbury": the push-through form, one LU (`ekf.ekf_update_info`);
       * "spd": the push-through form by two Choleskys (`ekf.ekf_update_spd`);
       * "newton": the push-through form by Newton inversion
@@ -352,7 +364,11 @@ def joint_update(state: VioState, cfg: FilterConfig, table: ft.FeatureTable,
                                                 return_resid=True)
             diag = diag.replace(newton_resid=nres)
         else:
-            H, res = uh.compress_system_ranges(H, res, ranges, cfg.state_dim)
+            with annotate("ovt.step.joint_reduce"):
+                H, res, n_rows = uh.reduce_joint_system(
+                    H, res, ranges, cfg.state_dim, cam_rows,
+                    cfg.cam_meas_support_ranges)
+            diag = diag.replace(n_joint_rows=n_rows)
             r_diag = torch.ones((H.shape[0],), dtype=H.dtype,
                                 device=H.device)
             state = ekf.ekf_update(state, cfg, H, res, r_diag, ranges=ranges)
@@ -396,9 +412,9 @@ def _step_core(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
     if not cfg.joint_vision_update or cfg.fast_compress:
         return sequential_update(state, cfg, table, tri_opts, reserved,
                                  batched)
-    state, table, H, res, diag, n_used = build_joint_system(
+    state, table, H, res, diag, n_used, cam_rows = build_joint_system(
         state, cfg, table, tri_opts, reserved, batched=batched)
-    return joint_update(state, cfg, table, H, res, diag, n_used)
+    return joint_update(state, cfg, table, H, res, diag, n_used, cam_rows)
 
 
 def zupt_attempt(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
@@ -416,7 +432,8 @@ def zupt_attempt(state: VioState, table: ft.FeatureTable, cfg: FilterConfig,
                       n_tracks=(table.ids >= 0).sum(dtype=torch.int32),
                       chi2_mean=zero_f,
                       n_slam=z_state.slam_valid.sum(dtype=torch.int32),
-                      n_slam_used=zero_i, newton_resid=zero_f)
+                      n_slam_used=zero_i, newton_resid=zero_f,
+                      n_joint_rows=zero_i)
     return z_state, z_diag, accepted
 
 

@@ -7,8 +7,10 @@ with a leading feature dimension instead of a vmap; `feature_jacobian` is
 the single-feature case (the sequential landmark init's).
 `compress_system` (the Householder TSQR) runs its row blocks through the
 hand-written `householder_qr_blocks` kernel on CUDA;
-`compress_system_ranges` (CholeskyQR2) is the filter's compression and
-`compress_system_cholesky` the normal-equation one of `fast_compress`.
+`compress_system_ranges` (CholeskyQR2) is the MSCKF update's compression,
+`reduce_joint_system` the joint update's exact reduction (Householder, by
+the same kernel) and `compress_system_cholesky` the normal-equation one of
+`fast_compress`.
 """
 
 from __future__ import annotations
@@ -303,6 +305,66 @@ def compress_system_ranges(H, res, ranges, D):
     res_c = H.new_zeros((k,))
     res_c[:kk] = R[:kk, k]
     return scatter_cols(Hc_s, ranges, D), res_c
+
+
+def live_rows(H, res):
+    """[..., m] bool: the rows of the stack [H | res] that hold a nonzero
+    entry (a zero row adds nothing to an update)."""
+    return (H != 0).any(dim=-1) | (res != 0)
+
+
+_QR_BLOCK_ROWS = 640  # the most rows householder_qr_blocks keeps in registers
+
+
+def householder_r(A):
+    """R [n, n] of a Householder QR of A [m, n] (float32, m >= n): row
+    blocks of at most `_QR_BLOCK_ROWS` rows through `householder_qr_blocks`
+    (the hand-written kernel on CUDA, one batched launch under vmap), their
+    stacked R factors reduced again until one block is left.  Zero-padded
+    rows are exact no-ops; no Gram matrix is formed."""
+    m, n = A.shape
+    g = -(-m // _QR_BLOCK_ROWS)
+    if g * n >= m:  # blocks would not shrink the stack: one block
+        g = 1
+    rows = max(n, _round_up(-(-m // g), 32))
+    A_p = torch.nn.functional.pad(A, (0, 0, 0, g * rows - m))
+    R_b = householder_qr_blocks(A_p.reshape(g, rows, n))
+    return R_b[0] if g == 1 else householder_r(R_b.reshape(g * n, n))
+
+
+def reduce_joint_system(H, res, ranges, D, cam_rows, cam_ranges):
+    """Exact reduction of the whitened joint stack (H [m, D], res [m]) to
+    k = |support| rows on the static column support `ranges` that give the
+    same Kalman update: (H_c [k, D], res_c [k], n_live), n_live the stack's
+    nonzero rows.  H_cᵀH_c = H_sᵀH_s and H_cᵀres_c = H_sᵀres up to float32
+    rounding, for any number of live rows: only orthogonal transforms (a
+    Householder QR, `householder_r`), no Gram matrix, shift or jitter.
+
+    `cam_rows` ((start, stop) row ranges) hold rows that are zero outside
+    the camera support `cam_ranges` ⊂ `ranges` (the MSCKF and delayed-init
+    rows): they are reduced first on those few columns, to the R of
+    [H_cam | res_cam]; its rows join the other rows (the landmarks') for
+    the QR on the whole support, of which the leading k rows are kept.  The
+    QR of [A₁; A₂] and of [R(A₁); A₂] give the same RᵀR."""
+    k = sum(b - a for a, b in ranges)
+    bounds = [0, *(i for span in cam_rows for i in span), H.shape[0]]
+    rest = [(a, b) for a, b in zip(bounds[::2], bounds[1::2]) if b > a]
+
+    def rows_of(M, spans):
+        return torch.cat([M[a:b] for a, b in spans])
+
+    H_cam, r_cam = rows_of(H, cam_rows), rows_of(res, cam_rows)
+    A1 = torch.cat([take_cols(H_cam, cam_ranges), r_cam[:, None]], dim=1)
+    H_o, r_o = rows_of(H, rest), rows_of(res, rest)
+    A2 = torch.cat([take_cols(H_o, ranges), r_o[:, None]], dim=1)
+    n_live = (live_rows(A1[:, :-1], A1[:, -1]).sum(dtype=torch.int32)
+              + live_rows(A2[:, :-1], A2[:, -1]).sum(dtype=torch.int32))
+    R1 = householder_r(A1)  # [k_cam + 1, k_cam + 1]
+    # R1's rows on the whole support: its camera columns scattered into
+    # the support's positions, its residual column last
+    R1_s = take_cols(scatter_cols(R1[:, :-1], cam_ranges, D), ranges)
+    R = householder_r(torch.cat([torch.cat([R1_s, R1[:, -1:]], dim=1), A2]))
+    return scatter_cols(R[:k, :k], ranges, D), R[:k, k], n_live
 
 
 def compress_system_cholesky(H, res, out_rows):

@@ -535,19 +535,25 @@ def _delayed_init_work(state: VioState, cfg: FilterConfig,
     #   P_fX = −R1⁻¹ Hx1 P ;  P_FF = R1⁻¹ (Hx1 P Hx1ᵀ + σ² I) R1⁻ᵀ
     X = (Hx1 * okf[:, None, None]).reshape(F * k, D)
     HxP = X @ state.cov  # [F·k, D]
-    Bflat = torch.block_diag(*R1inv)  # [F·k, F·k]
+    # block_diag(*R1inv) [F·k, F·k], as one product (a batch rule under
+    # vmap, where block_diag loops over the streams)
+    eye_f = torch.eye(F, dtype=dtype, device=dev)
+    Bflat = (R1inv[:, :, None, :] * eye_f[:, None, :, None]).reshape(F * k,
+                                                                     F * k)
     G = HxP @ X.T + sigma ** 2 * torch.eye(F * k, dtype=dtype, device=dev)
     P_FF = Bflat @ G @ Bflat.T
     P_fX = -(Bflat @ HxP)
     # rejected candidates land on the calib columns after the landmark
-    # block with all-zero rows: adding them changes nothing
+    # block with all-zero rows: adding them changes nothing.  The rows are
+    # placed by one-hot products, exact in float32 (index_add and an
+    # accumulating index_put loop over the streams under vmap)
     idx = (cfg.slam_off + 3 * slot_eff[:, None]
            + torch.arange(k, device=dev)[None, :]).reshape(F * k)
-    rows_add = torch.zeros_like(state.cov).index_add(0, idx, P_fX)
+    onehot = (idx[:, None] == torch.arange(D, device=dev)).to(dtype)
+    rows_add = onehot.T @ P_fX
     # P_fX is zero at the new slots' columns (free-slot covariance rows are
     # zero), so the corner gets exactly P_FF
-    corner = torch.zeros_like(state.cov).index_put(
-        (idx[:, None], idx[None, :]), P_FF, accumulate=True)
+    corner = onehot.T @ P_FF @ onehot
     cov = state.cov + rows_add + rows_add.T + corner
 
     # the mean correction R1⁻¹ res1 (ρ only for the single depth)

@@ -30,18 +30,19 @@ from test_native import TestEurocLoader
 
 @pytest.fixture(scope="module")
 def jnative():
-    """Both packages' native libraries, built here if need be (in the one
-    worker that runs this file, not at collection); the JAX package's
-    wrapper is returned.  Skips where the library cannot be built."""
+    """Both packages' native libraries, built here if need be (the port's
+    in the one worker that runs this file, not at collection; the JAX
+    package's under `native_lib`'s lock); the JAX package's wrapper is
+    returned.  Skips where the library cannot be built."""
+    from native_lib import ensure_built
     from open_vins_tpu.utils import native as jnative
 
-    for mod in (tnative, jnative):
-        if not mod.available():
-            try:
-                mod.build()
-            except Exception:
-                pass
-    if not (tnative.available() and jnative.available()):
+    if not tnative.available():
+        try:
+            tnative.build()
+        except Exception:
+            pass
+    if not (tnative.available() and ensure_built()):
         pytest.skip("native library not built")
     return jnative
 

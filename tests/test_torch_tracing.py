@@ -6,9 +6,11 @@ marginalization:
 (a) coverage: every aten op that the batched step dispatches lies in
     exactly one span: one of the seven leaf spans on the MSCKF-only path,
     a leaf or a path span on the joint "qr" path (the operating point)
-    and with ZUPT.  The exceptions are vmap's own boundary ops
-    (`VMAP_BOUNDARY`: the unbatched outputs expanded to the batch), which
-    lie outside every span;
+    and with ZUPT, where the joint reduction's span
+    (`ovt.step.joint_reduce`, opened once a step) nests inside
+    `ovt.step.joint_update`, so its ops lie in exactly those two.  The
+    exceptions are vmap's own boundary ops (`VMAP_BOUNDARY`: the unbatched
+    outputs expanded to the batch), which lie outside every span;
 (b) the step's outputs are bitwise the same with the profiler and the host
     clock both on as with both off;
 (c) with nothing recording, `annotate` returns the shared no-op and calls
@@ -41,6 +43,8 @@ VMAP_BOUNDARY = {"aten::expand", "aten::as_strided"}
 CONFIGS = {"msckf": CFG, "qr": OPPOINT_CFG,
            "zupt": dict(OPPOINT_CFG, use_zupt=True)}
 STEP_RANGE = "test.step"
+# the span that nests, and the one it nests in
+NESTED = {"ovt.step.joint_reduce": "ovt.step.joint_update"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -109,6 +113,9 @@ def test_spans_cover_the_step(run, msckf, name):
         assert int(state.n_clones[0]) == CFG["max_clones"]
         assert (out[2].n_msckf > 0).all()
         assert {n for _, _, n in spans} == allowed
+    else:
+        # the joint "qr" step reduces its stack once
+        assert [n for _, _, n in spans].count("ovt.step.joint_reduce") == 1
     lo, hi = min(s for s, _, _ in spans), max(e for _, e, _ in spans)
     ops = [(s, e, n) for s, e, n in events
            if n.startswith("aten::") and c0 <= s and e <= c1]
@@ -117,6 +124,11 @@ def test_spans_cover_the_step(run, msckf, name):
         inside = [m for a, b, m in spans if a <= s and e <= b]
         if not inside and n in VMAP_BOUNDARY:
             assert s >= hi or e <= lo, (n, "inside the step's spans")
+            continue
+        nested = [m for m in inside if m in NESTED]
+        if nested:
+            assert sorted(inside) == sorted([*nested, NESTED[nested[0]]]), (
+                n, inside)
             continue
         assert len(inside) == 1, (n, inside)
 

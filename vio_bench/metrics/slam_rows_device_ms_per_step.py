@@ -1,0 +1,23 @@
+"""Device milliseconds per traced step of the landmarks' rows
+(`updater_slam.build_update`: linearize, chi2-gate and stack every
+landmark's unconsumed measurements): the device time of the kernels
+launched inside the profiler ranges named `ovt.step.slam_update`
+(`trace.reduce`'s `op_device_s`, which counts the kernels whose correlation
+ids fall inside the span, those of nested spans included), over the
+profiled block's steps.  Kernels that overlap on the device are each
+counted whole, so such sums run above the device's busy time (about 8 %
+above it over a whole step of `msckf.mc`): a per-layer reading, not a split
+of the step.  Nothing when the program has no such span or the block
+launched nothing inside it."""
+
+UNIT = "ms"
+LAYER = ("frame step stage (models/manager: build_joint_system, "
+         "joint_update)")
+MOVES = "stream_frames_per_s"
+OP = "ovt.step.slam_update"
+
+
+def read(run):
+    t = run.trace
+    dev_s = t.op_device_s.get(OP) if t else None
+    return 1e3 * dev_s / t.steps if dev_s else None
