@@ -21,7 +21,16 @@ so the exit code is not 0):
    shapes, the row blocks of the MSCKF-only stack (760 × 121) and of the
    operating point's joint stack (1174 × 271), and the blocks of the joint
    "qr" update's exact reduction, one stream's and 4,096 streams' (the
-   library's batched QR not timed at 4,096);
+   library's batched QR not timed at 4,096); `msckf_linearize` on real
+   operands of both benchmark cells (`vio_bench/configs/sim_msckf.json`,
+   D = 120, and `sim_slam.json`, D = 270): 4,096 streams generated by the
+   benchmark's `vio_bench.gen` and stepped 12 frames by its program, then
+   the operands that `manager.msckf_build` hands the stage at frame 12
+   (4,096 × 40 features), the kernel (one vmapped launch) against the
+   plain version on the card, and checked on the first stream alone (one
+   unbatched call, as the single-stream loops make it) and on the first 8
+   streams (vmapped, as the 8-stream ensemble), where the kernel splits
+   each stream's features over several blocks;
 4. the MSCKF-only closed loop (11 clones, 200 points, <= 40 MSCKF features
    per update, 20 Hz camera / 200 Hz IMU, rk4) over the 399 staged frames
    of `open_vins_tpu_torch/data/msckf_sim20_seed0.npz`, after a 40-frame
@@ -240,6 +249,19 @@ RK4_WINDOW_TIMED = (4096, 0)
 RK4_WINDOW_CASES = [(1, 0), (1, 3), (7, 0), (7, 3), (4096, 0), (4096, 3)]
 RK4_WINDOW_K = 11
 RK4_WINDOW_TOL = 1e-5  # q, p, v absolute; Φ, Qd relative to the largest
+# msckf_linearize: the benchmark cells' configurations, their 4,096 streams
+# stepped LINEARIZE_FRAME frames (the clone window full) before the
+# operands are taken; H_proj and res_proj within LINEARIZE_TOL of each
+# feature's largest entry, γ within LINEARIZE_GAMMA_TOL of max(γ, 1), over
+# the features whose plain γ is finite (a failed triangulation's point is
+# gated out before its rows are used)
+LINEARIZE_CONFIGS = ("sim_msckf", "sim_slam")
+LINEARIZE_STREAMS = 4096
+LINEARIZE_CHECKED = (1, 8)  # the first streams, checked only (1: unbatched)
+LINEARIZE_FRAME = 12
+LINEARIZE_SEED = 4170000017
+LINEARIZE_TOL = 2e-4
+LINEARIZE_GAMMA_TOL = 1e-3
 # (label, g, B, n) of the QR blocks: the JAX oracle shapes, then the stacks'
 # blocks as update_helper._tsqr_r cuts them (B = 2n rounded up to 32), then
 # the three launches of the joint "qr" update's exact reduction
@@ -766,6 +788,161 @@ def phase_imu_rk4_window():
     return rows
 
 
+def linearize_bound_ms(B, F, O, D, k, nc=6):
+    """The operands read once (uv, mask, p_f, the support's k × k block of
+    the covariance) and the outputs written once (H_proj [F, m, D], res_proj,
+    the rows and γ); the operations as the kernel does them, per feature:
+    M = H_x P H_xᵀ by pairs of observations (4·nc² + 8·nc each), the three
+    reflectors on the 2O × (k + 4) rows (4·2O each column) and on both
+    sides of M (8·(2O)² each), the m × m Cholesky and forward solve."""
+    R, m = 2 * O, 2 * O - 3
+    n_bytes = B * (4 * (F * m * D + F * m + 2 * F + F * O * 2 + F * 3 + k * k)
+                   + F * O)
+    per_feature = (O * (O + 1) // 2 * (4 * nc * nc + 8 * nc)
+                   + 3 * (k + 4) * 4 * R + 3 * 8 * R * R
+                   + m ** 3 // 3 + m * m)
+    return _bound(n_bytes, B * F * per_feature)
+
+
+def _linearize_operands(name, seed):
+    """(cfg, state, gobs, p_f) that `manager.msckf_build` hands
+    `kernels.msckf_linearize` at frame LINEARIZE_FRAME of the benchmark
+    cell's LINEARIZE_STREAMS streams of configuration `name`, batched."""
+    import torch
+
+    from open_vins_tpu_torch.models import manager, runner
+    from open_vins_tpu_torch.ops import kernels
+    from vio_bench import gen, harness
+    from vio_bench.program import Program
+
+    config = harness.load_json(os.path.join(ROOT, "vio_bench", "configs",
+                                            f"{name}.json"))
+    streams = gen.make_streams(gen.Sim.from_dict(config["sim"]),
+                               LINEARIZE_STREAMS, seed, "cuda", chunk=64)
+    prog = Program(config)
+    calibs, runs = prog.records(streams)
+    state, table = prog.start(calibs, runs)
+    for k in range(LINEARIZE_FRAME):
+        state, table, _ = prog.step(state, table, runs, k)
+    cfg, seen, real = prog.cfg, {}, kernels.msckf_linearize
+
+    def capture(st, c, gobs, p_f):  # the plain version: no launch counted
+        seen.update(state=st, gobs=gobs, p_f=p_f)
+        return kernels.msckf_linearize_ref(st, c, gobs, p_f)
+
+    def one(st, tb, frame):
+        st, tb, reserved = manager.pre_update(st, tb, cfg, frame)
+        manager.msckf_build(st, cfg, tb, prog.tri, reserved, compress=False)
+        return seen["state"], seen["gobs"], seen["p_f"]
+
+    kernels.msckf_linearize = capture
+    try:
+        ops = torch.func.vmap(one)(state, table,
+                                   runner.ensemble_frame(runs,
+                                                         LINEARIZE_FRAME))
+    finally:
+        kernels.msckf_linearize = real
+    torch.cuda.synchronize()
+    return (cfg, *ops)
+
+
+def _linearize_row(name, got, want, launches):
+    """The kernel's results `got` against the plain version's `want`:
+    H_proj and res_proj relative to each feature's largest entry, γ to
+    max(|γ|, 1), over the features whose plain γ is finite."""
+    import torch
+
+    H, res, n_rows, gamma = got
+    H0, res0, n0, g0 = want
+    live = torch.isfinite(g0)
+    eH = ((H - H0).abs().amax((-2, -1))
+          / H0.abs().amax((-2, -1)).clamp(min=1.0))[live]
+    er = ((res - res0).abs().amax(-1)
+          / res0.abs().amax(-1).clamp(min=1.0))[live]
+    eg = ((gamma - g0).abs() / g0.abs().clamp(min=1.0))[live]
+    return {"phase": "kernel", "name": "msckf_linearize", "config": name,
+            "B": H.shape[0] if H.dim() == 4 else 1, "launches": launches,
+            "features": int(live.sum()),
+            "rows_equal": bool(torch.equal(n_rows, n0)),
+            "nonfinite_gamma": int((~live).sum()),
+            "h_rel_err": float(eH.max()), "res_rel_err": float(er.max()),
+            "gamma_rel_err": float(eg.max()),
+            "gamma_nonfinite_agree": bool(
+                torch.equal(torch.isfinite(gamma), live))}
+
+
+def _check_linearize_row(row):
+    if (row["launches"] != 1 or not row["rows_equal"]
+            or not row["gamma_nonfinite_agree"]
+            or row["h_rel_err"] > LINEARIZE_TOL
+            or row["res_rel_err"] > LINEARIZE_TOL
+            or row["gamma_rel_err"] > LINEARIZE_GAMMA_TOL):
+        raise AssertionError(f"msckf_linearize on {row['config']} at "
+                             f"B = {row['B']}: {row}")
+
+
+def phase_msckf_linearize():
+    """msckf_linearize under torch.func.vmap (the ensemble's step) against
+    its plain version on real operands of both benchmark cells, one launch
+    per batch, timed (`device_ms`, `call_ms`, the plain version's per-call
+    time) beside its bound; then checked on the first stream alone and on
+    the first 8 streams (LINEARIZE_CHECKED)."""
+    import torch
+
+    from open_vins_tpu_torch.ops import kernels
+
+    def first(tree, n):  # the first n streams; n = 1 drops the batch axis
+        return type(tree)(**{k: v[0] if n == 1 else v[:n]
+                             for k, v in tree.items()})
+
+    t0 = time.perf_counter()
+    rows = {}
+    for name in LINEARIZE_CONFIGS:
+        cfg, st, gobs, p_f = _linearize_operands(name, LINEARIZE_SEED)
+        fused = torch.func.vmap(
+            lambda s, g, p: kernels.msckf_linearize(s, cfg, g, p))
+        plain = torch.func.vmap(
+            lambda s, g, p: kernels.msckf_linearize_ref(s, cfg, g, p))
+        before = kernels.msckf_linearize.launches
+        got = fused(st, gobs, p_f)
+        torch.cuda.synchronize()
+        row = _linearize_row(name, got, plain(st, gobs, p_f),
+                             kernels.msckf_linearize.launches - before)
+        B, F, m, D = got[0].shape
+        O = gobs.mask.shape[-1]
+        k = sum(b - a for a, b in cfg.cam_meas_support_ranges)
+        row.update(F=F, O=O, m=m, D=D, k=k)
+        row["bound_ms"], row["bound_by"] = linearize_bound_ms(B, F, O, D, k)
+        row["device_ms"] = device_ms({"kernel": lambda: fused(st, gobs, p_f)})[
+            "kernel"]
+        row["call_ms"] = call_ms(lambda: fused(st, gobs, p_f), n_runs=100,
+                                 n_warm=3)
+        row["plain_ms"] = call_ms(lambda: plain(st, gobs, p_f), n_runs=5,
+                                  n_warm=1)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        emit(row)
+        rows[name] = row
+        del got
+        _check_linearize_row(row)
+        for n in LINEARIZE_CHECKED:
+            ops = (first(st, n), first(gobs, n), p_f[0] if n == 1 else p_f[:n])
+            one, ref = ((lambda s, g, p: kernels.msckf_linearize(s, cfg, g, p),
+                         lambda s, g, p: kernels.msckf_linearize_ref(
+                             s, cfg, g, p)) if n == 1 else (fused, plain))
+            before = kernels.msckf_linearize.launches
+            got = one(*ops)
+            torch.cuda.synchronize()
+            small = _linearize_row(name, got, ref(*ops),
+                                   kernels.msckf_linearize.launches - before)
+            emit(small)
+            _check_linearize_row(small)
+        del st, gobs, p_f, got
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_msckf_linearize",
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
 def phase_qr():
     """householder_qr_blocks against its plain version at every shape:
     RᵀR = AᵀA per block (tests/test_pallas_kernels.py's atol = rtol =
@@ -949,6 +1126,7 @@ def _drive(name, cfg, run, calib, ref, max_tracks):
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
     kernels.imu_rk4_window.launches = 0
+    kernels.msckf_linearize.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_filter(cfg, tri.TriangulationOptions(), calib,
                                     run, max_tracks=max_tracks,
@@ -958,7 +1136,8 @@ def _drive(name, cfg, run, calib, ref, max_tracks):
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
                     kernels.householder_qr_blocks.launches,
-                "imu_rk4_window": kernels.imu_rk4_window.launches}
+                "imu_rk4_window": kernels.imu_rk4_window.launches,
+                "msckf_linearize": kernels.msckf_linearize.launches}
 
     qs, ps, _, covs6, diag = outs
     rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
@@ -1419,6 +1598,7 @@ def phase_ensemble8(ref):
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
     kernels.imu_rk4_window.launches = 0
+    kernels.msckf_linearize.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_ensemble(cfg, opts, calibs, runs,
                                       max_tracks=max_tracks, device="cuda")
@@ -1427,7 +1607,8 @@ def phase_ensemble8(ref):
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
                     kernels.householder_qr_blocks.launches,
-                "imu_rk4_window": kernels.imu_rk4_window.launches}
+                "imu_rk4_window": kernels.imu_rk4_window.launches,
+                "msckf_linearize": kernels.msckf_linearize.launches}
     m = runner.ensemble_metrics(outs, runs)
     diag = outs[4]
     jax_rmse, jax_nees = np.asarray(ref["ref_rmse"]), np.asarray(
@@ -1488,6 +1669,7 @@ def phase_newton_zupt_ensemble(ref, calibs, runs):
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
     kernels.imu_rk4_window.launches = 0
+    kernels.msckf_linearize.launches = 0
     t0 = time.perf_counter()
     state, outs = runner.run_ensemble(cfg, opts, calibs, part,
                                       max_tracks=meta["max_tracks"],
@@ -1781,6 +1963,7 @@ def phase_main_path_rendered(sim, params, run, ref, smi):
     kernels.symmetric_downdate.launches = 0
     kernels.householder_qr_blocks.launches = 0
     kernels.imu_rk4_window.launches = 0
+    kernels.msckf_linearize.launches = 0
     t0 = time.perf_counter()
     (state, _, _), outs = runner.run_filter_rendered(
         cfg, opts, sim, params, run, kp, max_tracks=meta["max_tracks"],
@@ -1790,7 +1973,8 @@ def phase_main_path_rendered(sim, params, run, ref, smi):
     launches = {"symmetric_downdate": kernels.symmetric_downdate.launches,
                 "householder_qr_blocks":
                     kernels.householder_qr_blocks.launches,
-                "imu_rk4_window": kernels.imu_rk4_window.launches}
+                "imu_rk4_window": kernels.imu_rk4_window.launches,
+                "msckf_linearize": kernels.msckf_linearize.launches}
     qs, ps, _, covs6, diag, tracked = outs
     rmse, nees = runner.pose_metrics(qs, ps, covs6, run.gt_q, run.gt_p)
     spread = abs(ref["ref_rmse"] - ref["ref_seed1_rmse"])
@@ -2813,6 +2997,7 @@ def main():
     bd_rows = phase_downdate_batched()
     qr_rows = phase_qr()
     rk_rows = phase_imu_rk4_window()
+    ln_rows = phase_msckf_linearize()
     run, calib, ref = convert.load_staged_run(FIXTURE, device="cuda")
     ms_row = phase_msckf_path(run, calib, ref)
     tsqr_launches, operands = phase_tsqr(run, calib, convert.load_reference(
@@ -2905,6 +3090,17 @@ def main():
         **{k: rk_rows[RK4_WINDOW_TIMED][k]
            for k in ("B", "K", "max_abs_err", "device_ms", "call_ms",
                      "plain_ms", "bound_ms", "bound_by", "bound_share")},
+    }, {
+        "name": "msckf_linearize", "route": "cuda",
+        "source": "open_vins_tpu_torch/ops/csrc/msckf_linearize.cu",
+        "replaces": None,
+        "launches_msckf": ms_row["launches"]["msckf_linearize"],
+        "launches_ensemble8": en_row["launches"]["msckf_linearize"],
+        "cells": [{k: r[k] for k in ("config", "B", "F", "D", "h_rel_err",
+                                     "gamma_rel_err", "device_ms", "call_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bound_share")}
+                  for r in ln_rows.values()],
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,11 @@ _SIGNATURES = {
         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5
         + [ctypes.c_void_p],
     ),
+    "msckf_linearize": (
+        "msckf_linearize_f32",
+        [ctypes.c_void_p, ctypes.c_longlong] * 13 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 21 + [ctypes.c_float, ctypes.c_void_p],
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

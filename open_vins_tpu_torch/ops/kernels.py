@@ -5,8 +5,9 @@ A CPU tensor goes to the plain version (it is the kernel's oracle and what
 the CPU tests run).  A CUDA tensor launches the kernel on the current stream
 or raises: there is no fallback.  Each wrapper counts its launches in a
 plain integer attribute (`symmetric_downdate.launches`,
-`householder_qr_blocks.launches`, `imu_rk4_window.launches`), one per launch
-whether the call was batched or not.
+`householder_qr_blocks.launches`, `imu_rk4_window.launches`,
+`msckf_linearize.launches`), one per launch whether the call was batched or
+not.
 
 Each kernel is a `torch.library.custom_op` with a vmap rule, so a wrapper
 runs under `torch.func.vmap` (the filter ensemble vmaps the frame step over
@@ -14,9 +15,9 @@ its streams, as the JAX package's `jax.vmap` does) and a batched call is one
 launch over the whole batch: the counterpart of the `custom_vmap` rule of
 open_vins_tpu/ops/pallas_kernels.py:72-88, except that on Hopper the batch
 axis of the grid costs nothing, so the batched call runs the kernel too.
-`imu_rk4_window` sends CPU tensors to its plain version before the custom
-op, so that under vmap on the CPU its plain operations are batched as they
-were before it had a kernel.
+`imu_rk4_window` and `msckf_linearize` send CPU tensors to their plain
+versions before the custom op, so that under vmap on the CPU their plain
+operations are batched as they were before they had a kernel.
 """
 
 from __future__ import annotations
@@ -386,3 +387,194 @@ def imu_rk4_window(x, mats, t, w, a, gravity_mag, sigma_w, sigma_a, sigma_wb,
 
 
 imu_rk4_window.launches = 0
+
+
+def msckf_linearize_ref(state, cfg, gobs, p_f):
+    """The MSCKF update's linearize stage, plain PyTorch:
+    `manager.msckf_build`'s composition of `update_helper.obs_context`,
+    `feature_jacobian_batch` (p_f is also the FEJ point),
+    `nullspace_project` and `chi2_statistic` on the camera support.
+    Returns (H_proj [F, m, D], res_proj [F, m], n_rows [F] int32,
+    gamma [F]), m = 2O - 3."""
+    from open_vins_tpu_torch.models import update_helper as uh  # uses ops
+
+    ctx = uh.obs_context(state, cfg, gobs.clone_slot[0], gobs.cam[0])
+    H_x, H_f, res, row_mask = uh.feature_jacobian_batch(
+        state, cfg, gobs, p_f, p_f, ctx)
+    H_proj, res_proj = uh.nullspace_project(H_x, H_f, res)
+    return (H_proj, res_proj, row_mask.sum(dim=-1, dtype=torch.int32),
+            _support_chi2(state, cfg, H_proj, res_proj))
+
+
+def _support_chi2(state, cfg, H_proj, res_proj):
+    """`update_helper.chi2_statistic` of the projected rows on the camera
+    support, against the support's block of the covariance."""
+    from open_vins_tpu_torch.models import update_helper as uh
+
+    sup = cfg.cam_meas_support_ranges
+    P_ss = uh.take_cols(uh.take_cols(state.cov, sup).T, sup)
+    return uh.chi2_statistic(P_ss, uh.take_cols(H_proj, sup), res_proj,
+                             cfg.sigma_pix)
+
+
+_LIN_MAX_OBS = 32  # MAX_O of csrc/msckf_linearize.cu
+_LIN_GAMMA_ROWS = 24  # the kernel forms γ when the 2O rows are at most this
+_LIN_MODELS = {"radtan": 0, "equi": 1}
+
+
+def _check_linearize_args(state, cfg, gobs, p_f):
+    """Types, ranks, shapes and device of one stream's operands."""
+    named = (("uv", gobs.uv), ("p_f", p_f), ("cov", state.cov),
+             ("clones_q", state.clones_q), ("clones_p", state.clones_p),
+             ("clones_q_fej", state.clones_q_fej),
+             ("clones_p_fej", state.clones_p_fej),
+             ("calib_ext_q", state.calib_ext_q),
+             ("calib_ext_p", state.calib_ext_p),
+             ("calib_intr", state.calib_intr))
+    for name, arg in named:
+        if arg.dtype != torch.float32:
+            raise TypeError(f"msckf_linearize: {name} must be float32, "
+                            f"got {arg.dtype}")
+    if gobs.mask.dtype != torch.bool:
+        raise TypeError("msckf_linearize: mask must be bool, "
+                        f"got {gobs.mask.dtype}")
+    for name, arg in (("clone_slot", gobs.clone_slot), ("cam", gobs.cam)):
+        if arg.dtype.is_floating_point or arg.dtype == torch.bool:
+            raise TypeError(f"msckf_linearize: {name} must be an integer "
+                            f"tensor, got {arg.dtype}")
+    C, N, D = cfg.max_clones, cfg.num_cams, cfg.state_dim
+    F, O = gobs.mask.shape if gobs.mask.dim() == 2 else (-1, -1)
+    # the state may hold more cameras' calibration than the filter uses
+    n_cal = max(N, state.calib_ext_q.shape[0])
+    want = {"uv": (F, O, 2), "p_f": (F, 3), "cov": (D, D),
+            "clones_q": (C, 4), "clones_p": (C, 3), "clones_q_fej": (C, 4),
+            "clones_p_fej": (C, 3), "calib_ext_q": (n_cal, 4),
+            "calib_ext_p": (n_cal, 3), "calib_intr": (n_cal, 8)}
+    bad = [f"{name} {tuple(arg.shape)}" for name, arg in named
+           if tuple(arg.shape) != want[name]]
+    bad += [f"{name} {tuple(arg.shape)}" for name, arg in
+            (("clone_slot", gobs.clone_slot), ("cam", gobs.cam))
+            if tuple(arg.shape) != (F, O)]
+    if F < 1 or O != C * N or bad:
+        raise ValueError(
+            f"msckf_linearize: need mask [F, O] with O = {C} x {N}, uv "
+            f"[F, O, 2], p_f [F, 3], cov [{D}, {D}], the clones [{C}, 4|3], "
+            f"the calibration [>= {N}, 4|3|8]; got mask "
+            f"{tuple(gobs.mask.shape)}, " + ", ".join(bad))
+    devices = {arg.device for _, arg in named} | {
+        gobs.mask.device, gobs.clone_slot.device, gobs.cam.device}
+    if len(devices) != 1:
+        raise ValueError("msckf_linearize: the operands must lie on one "
+                         f"device, got {sorted(map(str, devices))}")
+
+
+def _launch_linearize(batch, operands, layout, sigma):
+    """One launch of `csrc/msckf_linearize.cu` over `batch` streams;
+    `operands` are (tensor, batch stride) of uv, mask, p_f, the clones, the
+    calibration, cov, clone_slot and cam."""
+    (uv, _), (mask, _) = operands[:2]
+    cov = operands[10][0]
+    _require_cuda("msckf_linearize", uv)
+    F, O = mask.shape[-2:]
+    D = cov.shape[-1]
+    m = 2 * O - 3
+    H = uv.new_empty((batch, F, m, D))
+    res = uv.new_empty((batch, F, m))
+    n_rows = torch.empty((batch, F), dtype=torch.int32, device=uv.device)
+    gamma = uv.new_empty((batch, F))
+    args = [v for arg, stride in operands for v in (arg.data_ptr(), stride)]
+    lib = _build.load("msckf_linearize")
+    with torch.cuda.device(uv.device):
+        stream = torch.cuda.current_stream(uv.device).cuda_stream
+        err = lib.msckf_linearize_f32(
+            *args, H.data_ptr(), res.data_ptr(), n_rows.data_ptr(),
+            gamma.data_ptr(), batch, F, O, D, *layout, sigma * sigma, stream)
+    if err != 0:
+        raise RuntimeError(f"msckf_linearize kernel launch failed: "
+                           f"cudaError {err}")
+    msckf_linearize.launches += 1
+    return H, res, n_rows, gamma
+
+
+@torch.library.custom_op(
+    f"{_NS}::msckf_linearize", mutates_args=(),
+    schema="(Tensor uv, Tensor mask, Tensor p_f, Tensor clones_q, "
+           "Tensor clones_p, Tensor clones_q_fej, Tensor clones_p_fej, "
+           "Tensor calib_ext_q, Tensor calib_ext_p, Tensor calib_intr, "
+           "Tensor cov, Tensor clone_slot, Tensor cam, int[] layout, "
+           "float sigma) -> (Tensor, Tensor, Tensor, Tensor)")
+def _linearize_op(uv, mask, p_f, clones_q, clones_p, clones_q_fej,
+                  clones_p_fej, calib_ext_q, calib_ext_p, calib_intr, cov,
+                  clone_slot, cam, layout, sigma):
+    tensors = (uv, mask, p_f, clones_q, clones_p, clones_q_fej, clones_p_fej,
+               calib_ext_q, calib_ext_p, calib_intr, cov, clone_slot, cam)
+    out = _launch_linearize(1, [_per_stream(t, None) for t in tensors],
+                            layout, sigma)
+    return tuple(o[0] for o in out)
+
+
+@_linearize_op.register_fake
+def _(uv, mask, p_f, *rest):
+    F, O = mask.shape
+    D = rest[7].shape[-1]
+    return (uv.new_empty((F, 2 * O - 3, D)), uv.new_empty((F, 2 * O - 3)),
+            mask.new_empty((F,), dtype=torch.int32), uv.new_empty((F,)))
+
+
+@_linearize_op.register_vmap
+def _(info, in_dims, *args):
+    """A batch of streams in one launch, each operand read in place at its
+    batch stride (0 for an unbatched one)."""
+    operands = [_per_stream(t, d) for t, d in zip(args[:13], in_dims[:13])]
+    return (_launch_linearize(info.batch_size, operands, *args[13:]),
+            (0, 0, 0, 0))
+
+
+def msckf_linearize(state, cfg, gobs, p_f):
+    """The MSCKF update's linearize stage for the F candidate features of
+    one update (`manager.msckf_build`): each feature's stacked measurement
+    rows (GLOBAL_3D, FEJ, the 5 cm depth gate, the calibration columns that
+    cfg calibrates online), projected onto the left nullspace of its
+    feature block, and its χ² statistic on the camera support.  `gobs`
+    holds the observations ([F, O], O = max_clones · num_cams, the same
+    (slot, camera) in every row), p_f [F, 3] the triangulated points.
+    Returns (H_proj [F, m, D], res_proj [F, m], n_rows [F] int32,
+    gamma [F]) with m = 2O - 3: `msckf_linearize_ref`'s results.
+
+    On CUDA it runs `csrc/msckf_linearize.cu`, one warp per feature, with
+    no one-hot expansion and S formed from the unprojected blocks in
+    float64; with more than 24 rows (two cameras) γ comes from
+    `chi2_statistic` on its outputs, as the plain version's does.  Under
+    `torch.func.vmap` the batch is one launch.  The JAX package has no
+    Pallas kernel here (XLA fuses the stage).
+    """
+    _check_linearize_args(state, cfg, gobs, p_f)
+    if state.cov.device.type == "cpu":  # under vmap too
+        return msckf_linearize_ref(state, cfg, gobs, p_f)
+    if cfg.cam_model not in _LIN_MODELS:
+        raise ValueError(f"msckf_linearize: unknown camera model "
+                         f"{cfg.cam_model!r}")
+    if gobs.mask.shape[-1] > _LIN_MAX_OBS:
+        raise ValueError("msckf_linearize: the kernel takes at most "
+                         f"{_LIN_MAX_OBS} observations a feature, got "
+                         f"{gobs.mask.shape[-1]}")
+    sup = cfg.cam_meas_support_ranges
+    ranges = [i for span in sup for i in span]
+    ranges += [0, 0] * (4 - len(sup))
+    layout = [cfg.max_clones, cfg.num_cams, cfg.clones_off,
+              cfg.calib_ext_off, cfg.calib_intr_off,
+              _LIN_MODELS[cfg.cam_model], int(cfg.calib_cam_extrinsics),
+              int(cfg.calib_cam_intrinsics), len(sup), *ranges]
+    q_fej, p_fej = ((state.clones_q_fej, state.clones_p_fej) if cfg.use_fej
+                    else (state.clones_q, state.clones_p))
+    H_proj, res_proj, n_rows, gamma = _linearize_op(
+        gobs.uv, gobs.mask, p_f, state.clones_q, state.clones_p, q_fej, p_fej,
+        state.calib_ext_q, state.calib_ext_p, state.calib_intr, state.cov,
+        gobs.clone_slot[0].long(), gobs.cam[0].long(), layout,
+        float(cfg.sigma_pix))
+    if 2 * gobs.mask.shape[-1] > _LIN_GAMMA_ROWS:  # the kernel's γ is NaN
+        gamma = _support_chi2(state, cfg, H_proj, res_proj)
+    return H_proj, res_proj, n_rows, gamma
+
+
+msckf_linearize.launches = 0

@@ -14,9 +14,10 @@ import torch
 from open_vins_tpu_torch.models import runner
 from open_vins_tpu_torch.ops import kernels
 from open_vins_tpu_torch.sim import simulator
-from torch_port_helpers import (check_r_factors, downdate_inputs,
-                                imu_window_inputs, np_of,
-                                oracle_blocks, stack_blocks)
+from torch_port_helpers import (LINEARIZE_CASES, check_r_factors,
+                                downdate_inputs, imu_window_inputs,
+                                linearize_inputs, np_of, oracle_blocks,
+                                stack_blocks)
 
 # symmetric_downdate: the oracle shapes of tests/test_pallas_kernels.py, the
 # main paths' (D, support), a 1434-wide state and the large map's (D,
@@ -426,3 +427,49 @@ def test_cuda_propagate_routes_rk4_window(integration, launches):
         assert (getattr(card, k).cpu() - getattr(cpu, k)).abs().max() <= 1e-5
     assert ((card.cov.cpu() - cpu.cov).abs().max()
             <= 1e-5 * cpu.cov.abs().max())
+
+
+# msckf_linearize: H_proj and res_proj element by element to LIN_TOL of
+# each feature's largest entry, γ to LIN_GAMMA_TOL of max(γ, 1), the rows
+# exactly.  The kernel sums in other orders and with FMA, and forms S from
+# the unprojected blocks in float64; on these inputs the plain version
+# itself lies within 3e-6, 7e-5 and 4e-5 of its own float64 run
+LIN_TOL, LIN_GAMMA_TOL = 2e-4, 1e-3
+
+
+def _check_linearize(got, want):
+    (H, r, n, g), (H0, r0, n0, g0) = [o.cpu() for o in got], want
+    assert torch.equal(n, n0)
+    assert H.shape == H0.shape and r.shape == r0.shape
+    scale = H0.abs().amax(dim=(-2, -1)).clamp(min=1.0)
+    assert ((H - H0).abs().amax(dim=(-2, -1)) <= LIN_TOL * scale).all()
+    scale = r0.abs().amax(dim=-1).clamp(min=1.0)
+    assert ((r - r0).abs().amax(dim=-1) <= LIN_TOL * scale).all()
+    assert ((g - g0).abs() <= LIN_GAMMA_TOL * g0.abs().clamp(min=1.0)).all()
+
+
+def _to_cuda(record):
+    return type(record)(**{k: v.cuda() for k, v in record.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,kw", LINEARIZE_CASES)
+def test_cuda_msckf_linearize_matches_plain_version(layout, kw):
+    """The kernel against the plain version (on the CPU), vmapped over 5
+    streams in one launch, and one stream unbatched."""
+    _need_gpu()
+    cfg, st, gobs, p_f = linearize_inputs(layout, F=40, streams=5, **kw)
+    fn = torch.func.vmap(
+        lambda s, g, p: kernels.msckf_linearize(s, cfg, g, p))
+    want = fn(st, gobs, p_f)
+    before = kernels.msckf_linearize.launches
+    got = fn(_to_cuda(st), _to_cuda(gobs), p_f.cuda())
+    torch.cuda.synchronize()
+    assert kernels.msckf_linearize.launches == before + 1
+    _check_linearize(got, want)
+    one = kernels.msckf_linearize(
+        type(st)(**{k: v[0].cuda() for k, v in st.items()}), cfg,
+        type(gobs)(**{k: v[0].cuda() for k, v in gobs.items()}),
+        p_f[0].cuda())
+    assert kernels.msckf_linearize.launches == before + 2
+    _check_linearize([o[None] for o in one], [o[:1] for o in want])

@@ -10,7 +10,8 @@ import torch
 
 from open_vins_tpu.ops import pallas_kernels as pk
 from open_vins_tpu_torch.ops import kernels
-from torch_port_helpers import downdate_inputs, imu_window_inputs, np_of
+from torch_port_helpers import (LINEARIZE_CASES, downdate_inputs,
+                                imu_window_inputs, linearize_inputs, np_of)
 
 # the oracle shapes of tests/test_pallas_kernels.py plus the MSCKF-only
 # main path's (D = 120, support m = 81)
@@ -199,3 +200,134 @@ def test_propagate_routes_rk4_window(kw, fused, monkeypatch):
                                float(t_[-1]))
     assert len(calls) == (1 if fused else 0)
     assert bool(torch.isfinite(out.cov).all())
+
+
+
+# ---------------------------------------------------------------------------
+# msckf_linearize: on CPU tensors the wrapper is its plain version,
+# `msckf_linearize_ref` (the composition msckf_build ran before the stage had
+# a kernel, which the JAX parity tests hold), bit for bit and with no launch.
+# The CUDA kernel against the plain version is in tests/test_torch_cuda.py.
+
+
+def _assert_same(got, want, rtol=0.0, atol=0.0):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol,
+                                   equal_nan=True)
+
+
+@pytest.mark.parametrize("layout,kw", LINEARIZE_CASES)
+def test_msckf_linearize_plain_version_is_the_three_calls(layout, kw):
+    """msckf_linearize on CPU tensors is msckf_linearize_ref, bit for bit,
+    and counts no launch, on both cells' layouts, with online calibration,
+    two cameras (m = 41, chi2_statistic's solve), the equidistant model and
+    FEJ off; the inputs hold masked and depth-gated observations and the
+    point that msckf_build puts in place of a non-finite triangulation."""
+    cfg, st, gobs, p_f = linearize_inputs(layout, **kw)
+    want = kernels.msckf_linearize_ref(st, cfg, gobs, p_f)
+    before = kernels.msckf_linearize.launches
+    _assert_same(kernels.msckf_linearize(st, cfg, gobs, p_f), want)
+    assert kernels.msckf_linearize.launches == before
+    H, res, n_rows, gamma = want
+    O = cfg.max_clones * cfg.num_cams
+    assert H.shape == (8, 2 * O - 3, cfg.state_dim)
+    assert int(n_rows[0]) == 2 * O and int(n_rows[1]) < int(n_rows[2])
+    assert (n_rows[3:] < 2 * O).any()  # masked observations
+    assert bool(torch.isfinite(gamma).all())
+
+
+def test_msckf_linearize_vmap_matches_loop():
+    """Under torch.func.vmap (the ensemble's step) the CPU call gives the
+    per-stream loop's results, to float32 rounding (the batched products
+    may sum in another order)."""
+    cfg, st, gobs, p_f = linearize_inputs("msckf", streams=3)
+    got = torch.func.vmap(
+        lambda s, g, p: kernels.msckf_linearize(s, cfg, g, p))(st, gobs, p_f)
+    for b in range(3):
+        one = kernels.msckf_linearize(
+            type(st)(**{k: v[b] for k, v in st.items()}), cfg,
+            type(gobs)(**{k: v[b] for k, v in gobs.items()}), p_f[b])
+        _assert_same([o[b] for o in got], one, rtol=1e-5, atol=1e-4)
+
+
+def test_msckf_linearize_cpu_call_counts_no_launch():
+    cfg, st, gobs, p_f = linearize_inputs("msckf", streams=2)
+    before = kernels.msckf_linearize.launches
+    torch.func.vmap(lambda s, g, p: kernels.msckf_linearize(s, cfg, g, p))(
+        st, gobs, p_f)
+    kernels.msckf_linearize(type(st)(**{k: v[0] for k, v in st.items()}),
+                            cfg, type(gobs)(**{k: v[0] for k, v in
+                                               gobs.items()}), p_f[0])
+    assert kernels.msckf_linearize.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "mask", "rank", "shape", "layout",
+                                 "device"])
+def test_msckf_linearize_rejects_bad_arguments(bad):
+    cfg, st, gobs, p_f = linearize_inputs("msckf")
+    if bad == "dtype":
+        p_f = p_f.double()
+    elif bad == "mask":
+        gobs = gobs.replace(mask=gobs.mask.to(torch.uint8))
+    elif bad == "rank":
+        gobs = gobs.replace(uv=gobs.uv[None])
+    elif bad == "shape":
+        st = st.replace(cov=st.cov[:-1, :-1].contiguous())
+    elif bad == "layout":  # observations not C x N
+        gobs = gobs.replace(**{k: v[:, :-1] for k, v in gobs.items()})
+    else:
+        p_f = torch.empty(p_f.shape, device="meta")
+    with pytest.raises((TypeError, ValueError)):
+        kernels.msckf_linearize(st, cfg, gobs, p_f)
+
+
+def test_msckf_build_routes_msckf_linearize(monkeypatch):
+    """msckf_build calls msckf_linearize once a call; the landmark rows
+    (`updater_slam.build_update`) and delayed init keep their plain
+    functions.  Two streams of `sim_slam` cut to 5 clones and 4 landmark
+    slots, stepped through promotion and delayed init."""
+    import json
+    from pathlib import Path
+
+    from open_vins_tpu_torch.models import manager
+    from open_vins_tpu_torch.models import updater_slam as slam
+    from vio_bench import gen
+    from vio_bench.program import Program
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "vio_bench/configs/sim_slam.json").read_text())
+    config["filter"].update(max_clones=5, max_slam=4)
+    config["sim"]["duration"] = 0.5
+    calls = []
+    real = kernels.msckf_linearize
+    monkeypatch.setattr(kernels, "msckf_linearize",
+                        lambda *a: calls.append(1) or real(*a))
+    seen = {"msckf_build": [], "build_update": [], "delayed_init": []}
+
+    def counted(name, fn):
+        def wrapped(*args, **kw):
+            before = len(calls)
+            out = fn(*args, **kw)
+            seen[name].append(len(calls) - before)
+            return out
+        return wrapped
+
+    monkeypatch.setattr(manager, "msckf_build",
+                        counted("msckf_build", manager.msckf_build))
+    monkeypatch.setattr(slam, "build_update",
+                        counted("build_update", slam.build_update))
+    monkeypatch.setattr(slam, "delayed_init",
+                        counted("delayed_init", slam.delayed_init))
+    streams = gen.make_streams(gen.Sim.from_dict(config["sim"]), 2,
+                               2 ** 31 + 3, "cpu")
+    prog = Program(config)
+    calibs, runs = prog.records(streams)
+    state, table = prog.start(calibs, runs)
+    used = 0
+    for k in range(streams.n_frames):
+        state, table, diag = prog.step(state, table, runs, k)
+        used += int(diag.n_msckf.sum())
+    assert seen["msckf_build"] == [1] * streams.n_frames
+    assert seen["build_update"] == [0] * streams.n_frames
+    assert seen["delayed_init"] == [0] * streams.n_frames
+    assert used > 0 and int(diag.n_slam.sum()) > 0

@@ -418,3 +418,107 @@ def rodrigues(rv):
     K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
     K = K - K.transpose(0, 2, 1)
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+# `kernels.msckf_linearize`'s layouts: the benchmark cells' (sim_msckf
+# D = 120, sim_slam D = 270), with online camera calibration, two cameras
+# (m = 41 rows), the equidistant model
+LINEARIZE_LAYOUTS = {
+    "msckf": dict(max_clones=11, max_slam=0, num_cams=1,
+                  max_msckf_in_update=40),
+    "slam": dict(max_clones=11, max_slam=50, num_cams=1,
+                 max_msckf_in_update=40),
+}
+LINEARIZE_CASES = [
+    ("msckf", {}), ("slam", {}),
+    ("msckf", dict(calib_cam_extrinsics=True, calib_cam_intrinsics=True)),
+    ("slam", dict(calib_cam_extrinsics=True, calib_cam_intrinsics=True)),
+    ("msckf", dict(calib_cam_extrinsics=True)),
+    ("slam", dict(calib_cam_intrinsics=True)),
+    ("msckf", dict(num_cams=2)),
+    ("slam", dict(num_cams=2, calib_cam_extrinsics=True,
+                  calib_cam_intrinsics=True)),
+    ("msckf", dict(cam_model="equi")),
+    ("msckf", dict(use_fej=False)),
+]
+
+
+def _small_quats(rng, n, s):
+    """n unit JPL quaternions of rotations of about `s` rad, w > 0."""
+    v = s * rng.normal(size=(n, 3))
+    th = np.linalg.norm(v, axis=1, keepdims=True)
+    k = v / np.maximum(th, 1e-12)
+    return np.concatenate([k * np.sin(th / 2), np.cos(th / 2)], 1)
+
+
+def linearize_inputs(layout, F=8, seed=0, streams=None, **kw):
+    """(cfg, state, gobs, p_f) of `kernels.msckf_linearize` on the CPU: a
+    full clone window of `layout` (LINEARIZE_LAYOUTS, cfg keys `kw` on top)
+    along a line, cameras looking down +z, F features 3-8 m ahead
+    triangulated 2 cm off, pixels projected with 1 px noise, the FEJ points
+    off the estimate, about 15 % of the observations masked, a random SPD
+    covariance.  Feature 1 lies 3 cm in front of clone 2's camera, so some
+    of its observations fall under the 5 cm depth gate; feature 2 sits at
+    (0, 0, 1), where `msckf_build` puts a non-finite triangulation.  With
+    `streams`, a batch of that many (leading dimension)."""
+    from open_vins_tpu_torch.core import state as tstate
+    from open_vins_tpu_torch.core.layout import FilterConfig
+    from open_vins_tpu_torch.models import update_helper as uh
+    from open_vins_tpu_torch.ops import cameras, lie
+
+    cfg = FilterConfig(**{**LINEARIZE_LAYOUTS[layout], **kw})
+    if streams is not None:
+        parts = [linearize_inputs(layout, F, seed + 7919 * s, None, **kw)
+                 for s in range(streams)]
+        state, gobs = (type(parts[0][i])(**{
+            k: torch.stack([getattr(p[i], k) for p in parts])
+            for k, _ in parts[0][i].items()}) for i in (1, 2))
+        return cfg, state, gobs, torch.stack([p[3] for p in parts])
+    rng = np.random.default_rng(seed)
+    C, N, D = cfg.max_clones, cfg.num_cams, cfg.state_dim
+    O = C * N
+    s = np.arange(C)
+    clones_p = np.stack([0.15 * s, 0.05 * np.sin(s), -0.1 * s], 1)
+    clones_q = _small_quats(rng, C, 0.02)
+    ext_q = _small_quats(rng, N, 0.01)
+    ext_p = np.array([[0.02 + 0.11 * n, -0.01, 0.005] for n in range(N)])
+    intr = np.array([458.6, 457.3, 367.2, 248.4, -0.28, 0.07, 2e-4, 1.8e-5]
+                    if cfg.cam_model == "radtan" else
+                    [458.6, 457.3, 367.2, 248.4, 0.01, -0.005, 1e-3, -5e-4])
+    A = rng.normal(size=(D, D)) * 3e-3
+    cov = A @ A.T / D + np.diag(rng.uniform(1e-6, 1e-5, D))
+    cov = (0.5 * (cov + cov.T)).astype(np.float32)
+    p_true = np.concatenate([rng.uniform(-2, 2, (F, 2)) + [0.75, 0.0],
+                             rng.uniform(3, 8, (F, 1))], 1)
+    p_f = p_true + 0.02 * rng.normal(size=(F, 3))
+    p_true[1] = p_f[1] = clones_p[2] + [0.01, -0.01, 0.03]
+    p_true[2] = p_f[2] = [0.0, 0.0, 1.0]
+
+    f32 = dict(dtype=torch.float32)
+    st = tstate.init_state(cfg, "cpu")
+    st = st.replace(
+        clones_q=torch.tensor(clones_q, **f32),
+        clones_p=torch.tensor(clones_p, **f32),
+        clones_q_fej=lie.quat_norm(torch.tensor(
+            clones_q + 1e-3 * rng.normal(size=(C, 4)), **f32)),
+        clones_p_fej=torch.tensor(
+            clones_p + 1e-3 * rng.normal(size=(C, 3)), **f32),
+        calib_ext_q=torch.tensor(ext_q, **f32),
+        calib_ext_p=torch.tensor(ext_p, **f32),
+        calib_intr=torch.tensor(np.tile(intr, (N, 1)), **f32),
+        clone_valid=torch.ones(C, dtype=torch.bool),
+        cov=torch.from_numpy(cov))
+    slot = torch.arange(C).repeat_interleave(N)
+    cam = torch.arange(N).repeat(C)
+    ctx = uh.obs_context(st, cfg, slot, cam)
+    pt = torch.tensor(p_true, **f32)
+    p_I = (ctx.R_GtoI @ (pt[:, None, :] - ctx.p_c)[..., None])[..., 0]
+    p_C = (ctx.R_ItoC @ p_I[..., None])[..., 0] + ctx.p_IinC
+    xy = p_C[..., :2] / p_C[..., 2:].clamp(min=1e-3)
+    uv = cameras.distort(cfg.cam_model, ctx.zeta, xy)
+    uv = uv + torch.tensor(rng.normal(size=(F, O, 2)), **f32)
+    mask = torch.tensor(rng.uniform(size=(F, O)) > 0.15)
+    mask[:3] = True
+    gobs = uh.GatheredObs(clone_slot=slot.expand(F, O), cam=cam.expand(F, O),
+                          uv=uv, uvn=torch.zeros_like(uv), mask=mask)
+    return cfg, st, gobs, torch.tensor(p_f, **f32)
